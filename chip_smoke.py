@@ -4,8 +4,11 @@
 
 Phases, each printing one JSON line with its elapsed seconds:
   1. card    the GPU's name and power limit (nvidia-smi);
-  2. build   nvcc builds the rotated-IoU kernel into coalign_tpu_torch/_build/;
-  3. kernel  the kernel against its plain PyTorch version on seeded boxes;
+  2. build   nvcc builds the rotated-IoU kernel into coalign_tpu_torch/_build/
+             and reports ptxas's registers, stack frame and spills;
+  3. kernel  the kernel against its plain PyTorch version on the seeded
+             cases of kernel_cases(), with the share of pairs that the
+             kernel's separation cull clears;
   4. full    the CoAlign flagship at full width (200x704 canvas, 5 agents,
              ResNet [3,5,8] x [64,128,256], att fusion at 3 scales, K=512
              NMS prefilter) with the reference checkpoint, against the
@@ -14,8 +17,11 @@ Phases, each printing one JSON line with its elapsed seconds:
   5. serve   20 timed requests of the full-width infer fn (CUDA events);
      profile torch.profiler over 5 more: device and host time per stage
              of the forward and post-processing, the device's busy share;
-  6. ap      AP30/50/70 of the tiny flagship on the 10 recorded frames.
-Then one JSON line describing each kernel, the card's name and power limit,
+  6. ap      AP30/50/70 of the tiny flagship on the 10 recorded frames;
+Then one JSON line describing each kernel, timed at three shapes (the main
+path's NMS input; that input stacked 8 times, a B=8 batch's one launch; 8
+frames of densely packed boxes) beside its bound and the time of one launch
+that writes the same output (out.zero_()), the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failed check raises,
 so the exit code is not 0. make_infer_fn runs float32 in full float32
 (TF32 off) and lets cuDNN autotune (runtime.configure_cuda).
@@ -111,11 +117,12 @@ def card_line() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def seeded_corners(n: int, seed: int) -> np.ndarray:
-    """(n, 4, 2) BEV corners of car-sized boxes packed into 20 m x 20 m, so
-    that many pairs overlap."""
+def seeded_corners(n: int, seed: int, spread: float = 10.0) -> np.ndarray:
+    """(n, 4, 2) BEV corners of car-sized boxes with centres in
+    [-spread, spread]^2; by default packed into 20 m x 20 m, so that many
+    pairs overlap."""
     rng = np.random.default_rng(seed)
-    cx, cy = rng.uniform(-10, 10, n), rng.uniform(-10, 10, n)
+    cx, cy = rng.uniform(-spread, spread, n), rng.uniform(-spread, spread, n)
     w, l = rng.uniform(1.5, 2.0, n), rng.uniform(3.5, 4.5, n)
     yaw = rng.uniform(-np.pi, np.pi, n)
     tmpl = np.array([[1, -1], [1, 1], [-1, 1], [-1, -1]]) / 2.0
@@ -123,6 +130,102 @@ def seeded_corners(n: int, seed: int) -> np.ndarray:
     c, s = np.cos(yaw)[:, None], np.sin(yaw)[:, None]
     return np.stack([lx * c - ly * s + cx[:, None],
                      lx * s + ly * c + cy[:, None]], -1).astype(np.float32)
+
+
+KERNEL_CASES = ("512x512", "40x150", "ragged", "all_cleared", "identical",
+                "world140", "degenerate")
+
+
+def degenerate_corners(seed: int) -> np.ndarray:
+    """(64, 4, 2) degenerate boxes over x in [-140, 140], y in [20, 140]:
+    16 collapsed to a point, 16 to a 4 m segment, 16 skewed (8
+    parallelograms sheared 30 degrees, 8 kites) and 16 thin (0.05 m x
+    4 m), each at a random yaw."""
+    rng = np.random.default_rng(seed)
+    shapes = np.concatenate([
+        np.zeros((16, 4, 2)),
+        np.tile([[-2.0, 0], [2, 0], [2, 0], [-2, 0]], (16, 1, 1)),
+        np.tile([[-2.0, -0.9], [2, -0.9], [2 + 1.04, 0.9], [-2 + 1.04, 0.9]],
+                (8, 1, 1)),
+        np.tile([[-2.0, 0], [0, -0.5], [2, 0], [0, 0.5]], (8, 1, 1)),
+        np.tile([[-2.0, -0.025], [2, -0.025], [2, 0.025], [-2, 0.025]],
+                (16, 1, 1))])
+    yaw = rng.uniform(-np.pi, np.pi, 64)
+    c, s = np.cos(yaw)[:, None], np.sin(yaw)[:, None]
+    x, y = shapes[..., 0], shapes[..., 1]
+    centre = np.stack([rng.uniform(-140, 140, 64), rng.uniform(20, 140, 64)],
+                      -1)[:, None]
+    return (np.stack([x * c - y * s, x * s + y * c], -1)
+            + centre).astype(np.float32)
+
+
+def kernel_cases(name: str):
+    """The kernel phase's inputs, (corners1, corners2) on the CPU:
+    512x512, 40x150   seeded boxes packed into 20 m x 20 m;
+    ragged            (3, 517) against (3, 131): neither a multiple of the
+                      kernel's 32 x 32 tile;
+    all_cleared       two 16 x 16 grids of cars, 50 m apart, the second
+                      shifted by 25 m: every pair is cleared;
+    identical         one box 256 times against itself: every IoU is 1;
+    world140          512 cars over +-140 m against 256 jittered copies of
+                      them and 256 others;
+    degenerate        the 64 boxes of degenerate_corners, far from 256 cars
+                      over x in [-140, 140], y in [-140, 0], against those
+                      cars and themselves: the cull must clear none of
+                      their pairs."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    if name in ("512x512", "40x150"):
+        n, m, seed = (512, 512, 0) if name == "512x512" else (40, 150, 1)
+        return t(seeded_corners(n, seed)), t(seeded_corners(m, seed + 100))
+    if name == "ragged":
+        return (t(seeded_corners(3 * 517, 2).reshape(3, 517, 4, 2)),
+                t(seeded_corners(3 * 131, 3).reshape(3, 131, 4, 2)))
+    if name == "all_cleared":
+        grid = 50.0 * np.stack(np.meshgrid(np.arange(16), np.arange(16)),
+                               -1).reshape(-1, 1, 2) - 375.0
+        cars = seeded_corners(256, 4, spread=0.0)
+        return t(cars + grid), t(cars[::-1] + grid + 25.0)
+    if name == "identical":
+        box = seeded_corners(1, 5, spread=30.0)
+        return t(np.repeat(box, 256, 0)), t(np.repeat(box, 256, 0))
+    if name == "world140":
+        c1 = seeded_corners(512, 6, spread=140.0)
+        jitter = np.random.default_rng(7).normal(0, 0.5, (256, 1, 2))
+        return t(c1), t(np.concatenate(
+            [c1[:256] + jitter, seeded_corners(256, 8, spread=140.0)]))
+    if name == "degenerate":
+        cars = seeded_corners(256, 9, spread=140.0)
+        cy = cars[:, :, 1].mean(1, keepdims=True)
+        cars[..., 1] += cy / 2 - 72.0 - cy       # centres into [-142, -2]
+        odd = degenerate_corners(10)
+        return t(odd), t(np.concatenate([cars, odd]))
+    raise KeyError(name)
+
+
+def check_degenerate(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """The kernel (``got``) against its plain version (``want``) on
+    kernel_cases("degenerate"), whose boxes the cull must never clear. The
+    segments, skewed and thin boxes (rows 16-63) have a well-defined IoU:
+    within 1e-4 of the plain version, and never exactly 0 where it is not.
+    A point box's IoU with any box is a ratio of two rounding errors (every
+    point lies "inside" it; the union cancels to a few ulp) in the kernel,
+    in the plain version and in the JAX package alike, so which of its pairs
+    come out 0 differs between them; a cull would make all of them 0, so
+    the kernel must give at least half as many nonzero values as the plain
+    version on rows 0-15."""
+    err = (got[16:] - want[16:]).abs().max().item()
+    zeroed = int(((got[16:] == 0) & (want[16:] != 0)).sum())
+    point_nonzero = int((got[:16] != 0).sum())
+    plain_point_nonzero = int((want[:16] != 0).sum())
+    check(err <= 1e-4, f"kernel vs plain, degenerate boxes: {err:.2e}")
+    check(zeroed == 0, f"kernel gives 0 on {zeroed} degenerate pairs")
+    check(plain_point_nonzero > 0
+          and point_nonzero >= plain_point_nonzero / 2,
+          f"point boxes: {point_nonzero} nonzero IoUs in the kernel, "
+          f"{plain_point_nonzero} in the plain version")
+    return {"max_abs_diff": err, "point_nonzero": point_nonzero,
+            "plain_point_nonzero": plain_point_nonzero}
 
 
 def event_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -160,35 +263,77 @@ def device_ms(fn, reps: int, name: str | None = None):
 
 def iou_ops(c1: torch.Tensor, c2: torch.Tensor) -> float:
     """The f32 operations that the rotated-IoU function needs on these boxes
-    (a multiply-add counts 2, a divide or a comparison 1), each value
-    computed once, whatever a kernel spends:
-      per box   24: its 4 edge vectors (8) and its shoelace area (16);
-      per pair 356: the 16 vertex differences between the two quads (32);
-                the 32 vertex-against-edge cross products (96), which decide
-                the 8 point-in-quad tests (2 comparisons each, 64) and are
-                the numerators of the crossings' t and u; the 16 edge-edge
-                denominators (48) with their eps test (16); t and u (32
-                divides) with their range tests (64); the IoU from the areas
-                (4);
+    (a multiply-add counts 2, a divide, square root or comparison 1), each
+    value computed once, whatever a kernel spends:
+      per box  57: its 4 edge vectors (8) and its shoelace area (16); for
+                the separation test its centre (8) and its reach, the
+                largest centre-to-corner distance plus half the margin (25).
+                The kernel's guard against degenerate boxes (the shortest
+                edge, square corners) belongs to its cull's design, not to
+                the function, and is not charged;
+      per cleared pair 8: the separation test (the centre difference 2, its
+                squared length 3, the reaches' sum and its square 2, the
+                comparison 1); such a pair's IoU is 0 without more work;
+      per surviving pair 356: the 16 vertex differences between the two
+                quads (32); the 32 vertex-against-edge cross products (96),
+                which decide the 8 point-in-quad tests (2 comparisons each,
+                64) and are the numerators of the crossings' t and u; the 16
+                edge-edge denominators (48) with their eps test (16); t and
+                u (32 divides) with their range tests (64); the IoU from the
+                areas (4);
       per valid crossing 4, for its point;
-      per pair with c >= 3 candidates 13c + log2(c!): the centroid (2c), the
-                pseudo-angle keys (7c), the shoelace sum (4c), and the sort's
-                comparisons, log2(c!) being the fewest any comparison sort
-                needs on average.
-    c and the valid crossings are counted on these boxes with the plain
-    version's own tests."""
+      per surviving pair with c >= 3 candidates 13c + log2(c!): the
+                centroid (2c), the pseudo-angle keys (7c), the shoelace sum
+                (4c), and the sort's comparisons, log2(c!) being the fewest
+                any comparison sort needs on average.
+    The cleared pairs come from separated_pairs, c and the valid crossings
+    from the plain version's own tests in its frame, on these boxes."""
     from coalign_tpu_torch.utils.iou import (_points_in_quad,
-                                             _segment_intersections)
+                                             _segment_intersections,
+                                             separated_pairs)
     n, m = c1.shape[-3], c2.shape[-3]
-    q1 = c1[..., :, None, :, :].expand(c1.shape[:-3] + (n, m, 4, 2))
-    q2 = c2[..., None, :, :, :].expand(c2.shape[:-3] + (n, m, 4, 2))
+    origin = c1[..., :, None, 0:1, :]
+    q1 = (c1[..., :, None, :, :] - origin).expand(c1.shape[:-3] + (n, m, 4, 2))
+    q2 = c2[..., None, :, :, :] - origin
     xing = _segment_intersections(q1, q2)[1].sum(-1).double()
     cnt = (_points_in_quad(q1, q2).sum(-1) + _points_in_quad(q2, q1).sum(-1)
            + xing).double()
     sort = torch.lgamma(cnt + 1) / np.log(2.0)
-    per_pair = 356 + 4 * xing + torch.where(cnt >= 3, 13 * cnt + sort, 0.0)
+    survivor = 356 + 4 * xing + torch.where(cnt >= 3, 13 * cnt + sort, 0.0)
+    per_pair = torch.where(separated_pairs(c1, c2), 8.0, survivor)
     boxes = c1.shape[:-3].numel() * (n + m)
-    return float(per_pair.sum()) + 24 * boxes
+    return float(per_pair.sum()) + 57 * boxes
+
+
+def time_shape(c: torch.Tensor) -> dict:
+    """The kernel on ``c`` against itself: its device time, its bound, the
+    share of pairs its cull clears, the device time of one launch that
+    writes the same output (``out.zero_()``), its difference from the plain
+    version and the plain version's device time."""
+    from coalign_tpu_torch.kernels import rotated_iou as K
+    from coalign_tpu_torch.utils.iou import rotated_iou_plain, separated_pairs
+    got = K.rotated_iou(c, c)
+    want = rotated_iou_plain(c, c)
+    err = (got - want).abs().max().item()
+    check(err <= 1e-4, f"kernel vs plain on {list(c.shape)}: {err:.2e}")
+    ops = iou_ops(c, c)
+    ops_ms = ops / PEAK_F32_OPS * 1e3
+    bytes_ms = (c.numel() * 4 * 2 + got.numel() * 4) / PEAK_BYTES * 1e3
+    kernel_ms = device_ms(lambda: K.rotated_iou(c, c), 100,
+                          "rotated_iou_kernel")
+    out = torch.empty_like(got)
+    floor_ms = device_ms(out.zero_, 100)
+    check(kernel_ms is not None and floor_ms is not None,
+          "the profiler recorded no device time")
+    bound = max(ops_ms, bytes_ms)
+    check(bound <= kernel_ms, f"kernel on {list(c.shape)} faster than its "
+          f"bound: {kernel_ms:.3e} < {bound:.3e} ms")
+    return {"shape": list(c.shape), "pairs": got.numel(), "max_abs_err": err,
+            "cleared_share": float(separated_pairs(c, c).double().mean()),
+            "ops": ops, "kernel_ms": kernel_ms, "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "share": bound / kernel_ms, "write_floor_ms": floor_ms,
+            "plain_ms": device_ms(lambda: rotated_iou_plain(c, c), 10)}
 
 
 def profile_requests(infer, batch, reps: int = 5) -> dict:
@@ -283,7 +428,7 @@ def main() -> int:
     from coalign_tpu_torch.models.zoo import build_model
     from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
     from coalign_tpu_torch.utils import nms as nms_module
-    from coalign_tpu_torch.utils.iou import rotated_iou_plain
+    from coalign_tpu_torch.utils.iou import rotated_iou_plain, separated_pairs
     from coalign_tpu_torch.utils.weights import load_pth
 
     card = card_line()
@@ -302,18 +447,32 @@ def main() -> int:
     # contracts multiply-adds, which moves results by a few ulp)
     dev = torch.device("cuda")
     cases = {}
-    for n, m, seed in ((512, 512, 0), (40, 150, 1)):
-        c1 = torch.from_numpy(seeded_corners(n, seed)).to(dev)
-        c2 = torch.from_numpy(seeded_corners(m, seed + 100)).to(dev)
+    for name in KERNEL_CASES:
+        c1, c2 = (c.to(dev) for c in kernel_cases(name))
         got = K.rotated_iou(c1, c2)
-        self_iou = K.rotated_iou(c1, c1)
         torch.cuda.synchronize()
+        cleared = separated_pairs(c1, c2)
+        if name == "degenerate":
+            check(not bool(cleared.any()), "a degenerate pair was cleared")
+            cases[name] = {"shapes": [list(c1.shape), list(c2.shape)],
+                           **check_degenerate(got, rotated_iou_plain(c1, c2))}
+            continue
+        self_iou = K.rotated_iou(c1, c1)
         err = (got - rotated_iou_plain(c1, c2)).abs().max().item()
-        diag = (torch.diagonal(self_iou) - 1).abs().max().item()
-        check(err <= 1e-4, f"kernel vs plain {n}x{m}: {err:.2e}")
-        check(diag <= 1e-4, f"self-IoU diagonal {n}: {diag:.2e}")
-        cases[f"{n}x{m}"] = {"max_abs_diff": err, "diag_err": diag,
-                             "overlapping_pairs": int((got > 0).sum())}
+        diag = (torch.diagonal(self_iou, dim1=-2, dim2=-1) - 1).abs().max()
+        check(err <= 1e-4, f"kernel vs plain {name}: {err:.2e}")
+        check(diag.item() <= 1e-4, f"self-IoU diagonal {name}: {diag:.2e}")
+        check(bool((got[cleared] == 0).all()),
+              f"{name}: a cleared pair is not exactly 0")
+        if name == "all_cleared":
+            check(bool(cleared.all()), "all_cleared: a pair was not cleared")
+        if name == "identical":
+            check((got - 1).abs().max().item() <= 1e-4,
+                  "identical boxes: an IoU is not 1")
+        cases[name] = {"shapes": [list(c1.shape), list(c2.shape)],
+                       "max_abs_diff": err, "diag_err": diag.item(),
+                       "cleared_share": float(cleared.double().mean()),
+                       "overlapping_pairs": int((got > 0).sum())}
     phase("kernel", cases=cases)
 
     # 4. full width against the reference's recording
@@ -398,44 +557,44 @@ def main() -> int:
     phase("ap", **ap, reference={k: float(io_ap[k])
                                  for k in ("ap30", "ap50", "ap70")})
 
-    # the kernel on the main path's own input (one frame's 512 boxes)
+    # the kernel on the main path's own input (one frame's 512 boxes), on
+    # that input stacked 8 times (the NMS of a B=8 batch, one launch) and on
+    # 8 frames of boxes packed into 20 m x 20 m (the cull's worst case)
     c = captured[0]
-    err = (K.rotated_iou(c, c) - rotated_iou_plain(c, c)).abs().max().item()
-    check(err <= 1e-4, f"kernel vs plain on the NMS input: {err:.2e}")
-    # per call with CUDA events (host launch overhead included), and the
-    # device time alone from the profiler, which the kernels line reports
+    shapes = {"main_path": c,
+              "batch8": c.expand(8, -1, -1, -1).contiguous(),
+              "dense": torch.from_numpy(np.stack(
+                  [seeded_corners(c.shape[1], s) for s in range(8)])).to(dev)}
+    timed = {name: time_shape(x) for name, x in shapes.items()}
+    # per call with CUDA events (host launch overhead included)
     kernel_call_ms = event_ms(lambda: K.rotated_iou(c, c), reps=200)
     plain_call_ms = event_ms(lambda: rotated_iou_plain(c, c), reps=20)
-    kernel_ms = device_ms(lambda: K.rotated_iou(c, c), 100,
-                          "rotated_iou_kernel")
-    plain_ms = device_ms(lambda: rotated_iou_plain(c, c), 10)
-    ms_source = "profiler"
-    if kernel_ms is None or plain_ms is None:
-        kernel_ms, plain_ms, ms_source = kernel_call_ms, plain_call_ms, \
-            "events"
-    n, m = c.shape[-3], c.shape[-3]
-    ops_ms = iou_ops(c, c) / PEAK_F32_OPS * 1e3
-    bytes_ms = (c.numel() * 4 * 2 + c.shape[0] * n * m * 4) / PEAK_BYTES * 1e3
+    main = timed["main_path"]
     print(json.dumps({"kernels": [{
         "name": "rotated_iou",
         "route": "cuda",
         "source": "coalign_tpu_torch/csrc/rotated_iou.cu",
         "replaces": "coalign_tpu/ops/pallas_iou.py:220",
         "tpu_kernel": "coalign_tpu/ops/pallas_iou.py:_iou_kernel",
-        "shape": list(c.shape),
+        "shape": main["shape"],
         "launches": launches,
         "launches_per_frame": launches,
-        "max_abs_err": err,
-        "max_abs_diff": err,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "ms_source": ms_source,
+        "max_abs_err": main["max_abs_err"],
+        "max_abs_diff": main["max_abs_err"],
+        "ms": main["kernel_ms"],
+        "kernel_ms": main["kernel_ms"],
+        "plain_ms": main["plain_ms"],
+        "ms_source": "profiler",
         "call_ms": kernel_call_ms,
         "plain_call_ms": plain_call_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "share": main["share"],
+        "cleared_share": main["cleared_share"],
+        "write_floor_ms": main["write_floor_ms"],
         "library_ms": None,
+        "shapes": timed,
+        "card": card,
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,11 +7,23 @@ centroid, shoelace area; computed in a local frame (see
 :func:`rotated_iou_plain`). It runs on any device; the kernel wrapper
 ``coalign_tpu_torch.kernels.rotated_iou.rotated_iou`` uses it for CPU tensors,
 and the host evaluation (``utils/eval_utils.py``) calls it on CPU tensors.
+
+:func:`separated_pairs` is the kernel's separation cull written out: the
+pairs that the kernel clears without computing them. It is not on any
+computing path; the tests hold it against the JAX package, and
+``chip_smoke.py`` counts the cleared pairs for the kernel's bound.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+# the separation cull's constants (csrc/rotated_iou.cu uses the same)
+SEPARATION_MARGIN = 1e-2   # metres between the two circumcircles
+MIN_EDGE = 0.1             # metres; a shorter edge makes a box degenerate
+SQUARE_COS = 1e-2          # a corner's |cos| above this makes it degenerate
 
 
 def polygon_area(corners: torch.Tensor) -> torch.Tensor:
@@ -112,3 +124,33 @@ def rotated_iou_plain(corners1: torch.Tensor,
     a2 = polygon_area(corners2)[..., None, :]
     union = a1 + a2 - inter
     return torch.where(union > 1e-9, inter / union, 0.0)
+
+
+def box_reach(corners: torch.Tensor):
+    """Centre (..., N, 2) and reach (..., N) of (..., N, 4, 2) quads: the
+    mean of the corners, and the largest centre-to-corner distance plus half
+    the separation margin. The reach is infinite for a degenerate box, one
+    with an edge shorter than ``MIN_EDGE`` or a corner more than ~0.6 degrees
+    off square, and for NaN corners."""
+    centre = corners.mean(dim=-2)
+    radius = torch.linalg.vector_norm(corners - centre[..., None, :],
+                                      dim=-1).amax(dim=-1)
+    edge = torch.roll(corners, -1, dims=-2) - corners
+    len2 = (edge * edge).sum(dim=-1)
+    dot = (edge * torch.roll(edge, -1, dims=-2)).sum(dim=-1)
+    square = dot * dot <= SQUARE_COS ** 2 * len2 * torch.roll(len2, -1, -1)
+    ok = (len2 >= MIN_EDGE ** 2).all(dim=-1) & square.all(dim=-1)
+    return centre, torch.where(ok, radius + 0.5 * SEPARATION_MARGIN, math.inf)
+
+
+def separated_pairs(corners1: torch.Tensor,
+                    corners2: torch.Tensor) -> torch.Tensor:
+    """(..., N, 4, 2) x (..., M, 4, 2) -> bool (..., N, M): the pairs whose
+    circumcircles lie more than ``SEPARATION_MARGIN`` apart, neither box
+    degenerate. Their IoU is exactly 0 (csrc/rotated_iou.cu says why;
+    tests/test_torch_iou_cull.py holds it against the JAX package)."""
+    c1, r1 = box_reach(corners1)
+    c2, r2 = box_reach(corners2)
+    d = c1[..., :, None, :] - c2[..., None, :, :]
+    reach = r1[..., :, None] + r2[..., None, :]
+    return (d * d).sum(dim=-1) > reach * reach

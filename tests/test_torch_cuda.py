@@ -11,10 +11,10 @@ import pytest
 import torch
 
 from coalign_tpu_torch.kernels import rotated_iou as K
-from coalign_tpu_torch.utils.iou import rotated_iou_plain
+from coalign_tpu_torch.utils.iou import rotated_iou_plain, separated_pairs
 from coalign_tpu_torch.utils.nms import nms_rotated
 
-from chip_smoke import seeded_corners
+from chip_smoke import check_degenerate, kernel_cases, seeded_corners
 
 
 @pytest.fixture
@@ -43,6 +43,53 @@ def test_kernel_matches_plain(cuda, n, m):
     torch.testing.assert_close(got, rotated_iou_plain(c1, c2), atol=1e-4,
                                rtol=0)
     diag = torch.diagonal(K.rotated_iou(c1, c1))
+    torch.testing.assert_close(diag, torch.ones_like(diag), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ragged", "all_cleared", "identical",
+                                  "world140"])
+def test_kernel_matches_plain_on_the_smoke_cases(cuda, name):
+    # chip_smoke.py's kernel-phase cases: a ragged tile edge, every pair
+    # cleared by the cull (exactly 0), one box repeated (IoU 1), +-140 m
+    c1, c2 = (c.to(cuda) for c in kernel_cases(name))
+    got = K.rotated_iou(c1, c2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, rotated_iou_plain(c1, c2), atol=1e-4,
+                               rtol=0)
+    cleared = separated_pairs(c1, c2)
+    assert (got[cleared] == 0).all()
+    if name == "all_cleared":
+        assert cleared.all()
+    if name == "identical":
+        torch.testing.assert_close(got, torch.ones_like(got), atol=1e-4,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_clears_no_degenerate_pair(cuda):
+    # points, segments, skewed and thin boxes far from cars: the kernel must
+    # compute every such pair, as the plain version does (see
+    # chip_smoke.check_degenerate for why point boxes are counted)
+    c1, c2 = (c.to(cuda) for c in kernel_cases("degenerate"))
+    got = K.rotated_iou(c1, c2)
+    torch.cuda.synchronize()
+    assert not separated_pairs(c1, c2).any()
+    check_degenerate(got, rotated_iou_plain(c1, c2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", [10.0, 140.0])
+def test_kernel_batch8_one_launch(cuda, spread):
+    # B=8 frames of 512 boxes, dense (20 m x 20 m) and sparse (+-140 m)
+    c = torch.from_numpy(np.stack([seeded_corners(512, s, spread)
+                                   for s in range(8)])).to(cuda)
+    before = K.rotated_iou.launches
+    got = K.rotated_iou(c, c)
+    assert K.rotated_iou.launches == before + 1
+    torch.testing.assert_close(got, rotated_iou_plain(c, c), atol=1e-4,
+                               rtol=0)
+    diag = torch.diagonal(got, dim1=-2, dim2=-1)
     torch.testing.assert_close(diag, torch.ones_like(diag), atol=1e-4, rtol=0)
 
 

@@ -119,16 +119,44 @@ def test_plain_keeps_precision_at_world_coordinates():
 
 
 @pytest.mark.parametrize("inner,want", [
-    # far apart: no candidate; per pair 356, per box 24
-    (np.array([[10.0, 10], [12, 10], [12, 11], [10, 11]]), 356 + 48),
-    # nested: the inner box's 4 corners are the candidates, no crossing,
-    # 13c + log2(c!) for c = 4
+    # far apart: cleared by the separation test (8 a pair); per box 57
+    (np.array([[10.0, 10], [12, 10], [12, 11], [10, 11]]), 8 + 114),
+    # nested: not cleared; per pair 356, the inner box's 4 corners are the
+    # candidates, no crossing, 13c + log2(c!) for c = 4
     (np.array([[0.5, 0.5], [1.5, 0.5], [1.5, 1.5], [0.5, 1.5]]),
-     356 + 52 + np.log2(24) + 48),
-])
+     356 + 52 + np.log2(24) + 114),
+    # far apart but collapsed to a segment: degenerate, so never cleared;
+    # the full count, with no candidate
+    (np.array([[10.0, 10], [12, 10], [12, 10], [10, 10]]), 356 + 114),
+], ids=["far_cleared", "nested", "far_degenerate"])
 def test_iou_op_count(inner, want):
     # the operation count behind the kernel's bound in chip_smoke.py
     from chip_smoke import iou_ops
     outer = torch.tensor([[[0.0, 0.0], [4, 0], [4, 3], [0, 3]]])
     inner = torch.from_numpy(inner[None].astype(np.float32))
     assert iou_ops(outer, inner) == pytest.approx(want, abs=1e-9)
+
+
+def test_kernel_sorting_network_sorts():
+    """The kernel sorts each pair's 24 candidate slots with the network
+    SORT24 in csrc/rotated_iou.cu. By the 0-1 principle it sorts every input
+    if it sorts every 0/1 input: all 2^24 of them at once, one bit each,
+    wire w holding bit w of every input, min = AND and max = OR."""
+    import re
+    src = K.SOURCE.read_text()
+    body = src[src.index("#define SORT24(X)"):]
+    body = body[:body.index("\n\n")]
+    pairs = [(int(a), int(b))
+             for a, b in re.findall(r"X\((\d+), (\d+)\)", body)]
+    assert len(pairs) == 127 and all(a < b < 24 for a, b in pairs)
+    n = 24
+    wires = []
+    for w in range(n):
+        pattern, length = ((1 << (1 << w)) - 1) << (1 << w), 2 << w
+        while length < 1 << n:
+            pattern |= pattern << length
+            length *= 2
+        wires.append(pattern)
+    for a, b in pairs:
+        wires[a], wires[b] = wires[a] & wires[b], wires[a] | wires[b]
+    assert all(wires[w] & ~wires[w + 1] == 0 for w in range(n - 1))
