@@ -18,6 +18,17 @@ Phases, each printing one JSON line with its elapsed seconds:
      profile torch.profiler over 5 more: device and host time per stage
              of the forward and post-processing, the device's busy share;
   6. ap      AP30/50/70 of the tiny flagship on the 10 recorded frames;
+  7. train   the yaml's flagship trained from scratch at full width: B=4
+             synthetic frames of 5 agents at bench.py's train scale, the
+             yaml's loss, targets, AdamW and schedule; 3 warm-up and 10
+             timed steps (CUDA events), peak memory, the loss terms of the
+             first and last step; no IoU-kernel launch in a train step;
+     train_eval   its validation loss and one B=4 eval batch through
+             make_infer_fn (the kernel's launches counted);
+     train_profile   torch.profiler over one step, per stage;
+     train_parity    the tiny flagship's step on CUDA against the CPU;
+     train_ap   tests/test_end2end.py's gate on the card: the tiny
+             flagship trained 250 steps on two frames, then AP;
 Then one JSON line describing each kernel, timed at three shapes (the main
 path's NMS input; that input stacked 8 times, a B=8 batch's one launch; 8
 frames of densely packed boxes) beside its bound and the time of one launch
@@ -27,7 +38,8 @@ so the exit code is not 0. make_infer_fn runs float32 in full float32
 (TF32 off) and lets cuDNN autotune (runtime.configure_cuda).
 
 The goldens are read in place from tests/golden/; nothing of JAX or of the
-coalign_tpu package is imported.
+coalign_tpu package is imported. The CPU can rehearse train_ap and
+train_parity's steps: train_to_ap("cpu"), _one_sgd_step("cpu", ...).
 """
 
 from __future__ import annotations
@@ -91,6 +103,76 @@ TINY_ANCHORS = {"W": 64, "H": 64, "l": 3.9, "w": 1.6, "h": 1.56,
                 "r": [0, 90], "num": 2, "feature_stride": 2,
                 "vw": 0.4, "vh": 0.4, "vd": 4.0,
                 "cav_lidar_range": TINY_ARGS["lidar_range"]}
+
+# Training at full width: the yaml's model from scratch (FULL_ARGS without
+# pad_parity, which only reproduces reference checkpoints) with the loss,
+# targets, optimizer and schedule of
+# coalign_tpu/hypes_yaml/opv2v/pointpillar_coalign.yaml, on synthetic scenes
+# at bench.py's train scale (bench.py:88-101), B = 4 (the yaml's
+# batch_size).
+TRAIN_FULL_ARGS = {**FULL_ARGS, "pillar_vfe": {
+    k: v for k, v in FULL_ARGS["pillar_vfe"].items() if k != "pad_parity"}}
+TRAIN_SCENES = dict(num_agents=5, num_objects=20, points_per_object=400,
+                    ground_points=16000, agent_spread=30.0, seed=1,
+                    lidar_range=FULL_ARGS["lidar_range"])
+TRAIN_BATCHER = dict(max_cav=5, max_points=30000, max_objects=100,
+                     comm_range=70.0, lidar_range=FULL_ARGS["lidar_range"])
+TRAIN_BATCH = 4
+YAML_TARGETS = {"pos_threshold": 0.6, "neg_threshold": 0.45,
+                "score_threshold": 0.20}
+YAML_LOSS = {"pos_cls_weight": 2.0,
+             "cls": {"alpha": 0.25, "gamma": 2.0, "weight": 2.0},
+             "reg": {"sigma": 3.0, "weight": 2.0},
+             "dir": {"weight": 0.2, "args": FULL_ARGS["dir_args"]}}
+YAML_OPTIMIZER = {"core_method": "Adam", "lr": 0.002,
+                  "args": {"eps": 1e-10, "weight_decay": 1e-4}}
+YAML_SCHEDULER = {"core_method": "multistep", "gamma": 0.1,
+                  "step_size": [10, 15]}
+
+# The tiny training of tests/test_end2end.py (MODEL_ARGS, ANCHOR_ARGS,
+# POSTPROCESS, LOSS_ARGS, _setup's scenes and batcher), which imports JAX:
+# train_ap trains it to AP as that test does, and train_parity steps it on
+# both devices.
+E2E_RANGE = [-16.0, -16.0, -3.0, 16.0, 16.0, 1.0]
+E2E_ARGS = {
+    "voxel_size": [0.5, 0.5, 4.0],
+    "lidar_range": E2E_RANGE,
+    "anchor_number": 2,
+    "pillar_vfe": {"use_norm": True, "with_distance": False,
+                   "use_absolute_xyz": True, "num_filters": [32]},
+    "point_pillar_scatter": {"num_features": 32},
+    "base_bev_backbone": {"layer_nums": [2, 2], "layer_strides": [2, 2],
+                          "num_filters": [32, 64], "upsample_strides": [1, 2],
+                          "num_upsample_filter": [32, 32]},
+    "fusion_method": "att",
+    "att": {"feat_dim": [32, 64]},
+    "shrink_header": {"kernal_size": [3], "stride": [1], "padding": [1],
+                      "dim": [64], "input_dim": 64},
+    "dir_args": {"dir_offset": 0.7853, "num_bins": 2, "anchor_yaw": [0, 90]},
+}
+E2E_ANCHORS = {"W": 64, "H": 64, "l": 4.2, "w": 1.8, "h": 1.6, "r": [0, 90],
+               "vw": 0.5, "vh": 0.5, "feature_stride": 2,
+               "cav_lidar_range": E2E_RANGE}
+E2E_POSTPROCESS = {
+    "anchor_args": E2E_ANCHORS,
+    "target_args": {"pos_threshold": 0.6, "neg_threshold": 0.45,
+                    "score_threshold": 0.25},
+    "order": "hwl", "max_num": 100, "nms_thresh": 0.15,
+    "gt_range": E2E_RANGE,
+    "dir_args": {"dir_offset": 0.7853, "num_bins": 2, "anchor_yaw": [0, 90]},
+}
+E2E_LOSS = {"pos_cls_weight": 2.0,
+            "cls": {"alpha": 0.25, "gamma": 2.0, "weight": 2.0},
+            "reg": {"sigma": 3.0, "weight": 2.0},
+            "dir": {"weight": 0.2, "args": {"dir_offset": 0.7853,
+                                            "num_bins": 2,
+                                            "anchor_yaw": [0, 90]}}}
+E2E_SCENES = dict(num_frames=4, num_agents=2, num_objects=4,
+                  lidar_range=E2E_RANGE, agent_spread=4.0,
+                  points_per_object=220, ground_points=512,
+                  object_spread=0.55, seed=7)
+E2E_BATCHER = dict(max_cav=2, max_points=2500, max_objects=16,
+                   lidar_range=E2E_RANGE, comm_range=70.0)
 
 # published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, HBM3 bandwidth
@@ -336,21 +418,24 @@ def time_shape(c: torch.Tensor) -> dict:
             "plain_ms": device_ms(lambda: rotated_iou_plain(c, c), 10)}
 
 
-def profile_requests(infer, batch, reps: int = 5) -> dict:
-    """Where one request's time goes: torch.profiler over ``reps`` requests.
-    Per stage (the "stage/..." ranges of the model's forward and of
-    make_infer_fn), the device time of the kernels launched inside it and
-    the host time of the range, each per request; the device kernels' total
-    per request and their share of the request's wall time; the five
-    kernels with the most device time."""
+def profile_calls(fn, reps: int = 5) -> dict:
+    """Where the time of one call of ``fn`` goes: torch.profiler over
+    ``reps`` calls after one untimed call. Per stage (the "stage/..."
+    ranges of the model's forward, of make_infer_fn and of
+    make_train_step), the device time of the kernels launched inside it and
+    the host time of the range, each per call; the backward pass runs in
+    autograd's own thread, outside its range, so the "backward" stage's
+    device time is that of the kernels launched by autograd's engine; the
+    device kernels' total per call and their share of the call's wall time;
+    the five kernels with the most device time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    infer(batch)
+    fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t = time.perf_counter()
         for _ in range(reps):
-            infer(batch)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / reps
     events = prof.key_averages()
@@ -359,13 +444,18 @@ def profile_requests(infer, batch, reps: int = 5) -> dict:
         "device_ms": e.device_time_total / reps / 1e3,
         "host_ms": e.cpu_time_total / reps / 1e3}
         for e in events if e.device_type == cpu and e.key.startswith("stage/")}
+    if "backward" in stages:
+        stages["backward"]["device_ms"] = sum(
+            e.device_time_total for e in events if e.device_type == cpu
+            and e.key.startswith("autograd::engine::evaluate_function"))\
+            / reps / 1e3
     # a range can also appear on the device timeline under its own name
     kernels = sorted((e for e in events if e.device_type == gpu
                       and not e.key.startswith("stage/")),
                      key=lambda e: e.self_device_time_total, reverse=True)
     device_ms = sum(e.self_device_time_total for e in kernels) / reps / 1e3
-    return {"requests": reps, "stages": stages,
-            "request_wall_ms": wall_ms,
+    return {"calls": reps, "stages": stages,
+            "call_wall_ms": wall_ms,
             "device_kernel_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
             "top_kernels": [[e.key[:72],
@@ -417,6 +507,211 @@ def match_box_sets(ours_c, ours_s, ref_c, ref_s):
     check(worst_iou > 0.95, f"unmatched box: best IoU {worst_iou:.4f}")
     check(worst_ds < 1e-3, f"score drift {worst_ds:.2e}")
     return worst_iou, worst_ds
+
+
+def train_full(card: str) -> tuple:
+    """The train phase: the yaml's flagship from scratch at full width, B = 4
+    synthetic frames of 5 agents, 3 warm-up steps (cuDNN autotunes the
+    backward's convolutions) and 10 steps timed with CUDA events; then the
+    Checks:
+    every loss term finite, every parameter a finite gradient, every
+    running statistic moved, the total loss lower at step 13 than at step
+    1, no rotated-IoU launch in a train step and one at least in the eval
+    batch. Returns (the phase's fields, the train step, the device batch)."""
+    from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
+    from coalign_tpu_torch.data.prefetch import prefetch
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    from coalign_tpu_torch.kernels import rotated_iou as K
+    from coalign_tpu_torch.loss import build_loss
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
+    from coalign_tpu_torch.train import build_optimizer, make_train_step
+
+    scenes = SyntheticScenes(num_frames=TRAIN_BATCH, **TRAIN_SCENES)
+    batcher = IntermediateFusionBatcher(**TRAIN_BATCHER)
+    host = batcher.assemble([scenes[i] for i in range(TRAIN_BATCH)])
+    (batch,) = list(prefetch(iter([host])))     # pinned, side-stream copy
+    model = build_model({"core_method": "point_pillar_baseline_multiscale",
+                         "args": TRAIN_FULL_ARGS}, seed=0)
+    spec = make_anchor_spec(FULL_ANCHORS, YAML_TARGETS)
+    loss = build_loss(YAML_LOSS)
+    opt, sched = build_optimizer(model.parameters(), YAML_OPTIMIZER,
+                                 YAML_SCHEDULER)
+    step = make_train_step(model, loss, spec, opt, sched)
+    running = {k: v.clone() for k, v in model.state_dict().items()
+               if k.endswith(("running_mean", "running_var"))}
+
+    torch.cuda.reset_peak_memory_stats()
+    K.rotated_iou.launches = 0
+    terms = [step(batch) for _ in range(3)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        terms.append(step(batch))
+    end.record()
+    torch.cuda.synchronize()
+    train_launches = K.rotated_iou.launches
+    ms = start.elapsed_time(end) / 10
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first = {k: float(v) for k, v in terms[0].items()}
+    last = {k: float(v) for k, v in terms[-1].items()}
+    check(all(np.isfinite(float(v)) for t in terms for v in t.values()),
+          "a loss term is not finite")
+    for name, p in model.named_parameters():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+              f"{name}: no finite gradient")
+    state = model.state_dict()
+    still = [k for k, v in running.items() if torch.equal(state[k], v)]
+    check(not still, f"running statistics that did not move: {still[:3]}")
+    check(last["total_loss"] < first["total_loss"],
+          f"total loss {first['total_loss']:.4f} -> {last['total_loss']:.4f}")
+    check(train_launches == 0,
+          f"{train_launches} rotated-IoU launches in 13 train steps")
+    fields = {"batch": TRAIN_BATCH, "agents": TRAIN_BATCHER["max_cav"],
+              "points_per_agent": TRAIN_BATCHER["max_points"],
+              "valid_points": int(host["point_mask"].sum()),
+              "gt_boxes": int(host["gt_mask"].sum()),
+              "canvas": [200, 704], "timed_steps": 10, "ms_per_step": ms,
+              "frames_per_s": TRAIN_BATCH * 1000.0 / ms,
+              "peak_mem_gib": peak, "first_step": first, "last_step": last,
+              "launches_per_train_step": train_launches / len(terms),
+              "card": card}
+    return fields, (model, loss, spec, batcher, scenes, step, batch)
+
+
+def train_eval(model, loss, spec, batcher, scenes, batch) -> dict:
+    """The train_eval phase: the trained model's validation loss over the
+    train phase's frames, and one B = 4 eval batch through make_infer_fn,
+    whose rotated-IoU launches are counted. Its kept boxes must be finite
+    (a model 13 steps from scratch may decode inf sizes in boxes that the
+    score threshold drops)."""
+    from coalign_tpu_torch.inference import make_infer_fn
+    from coalign_tpu_torch.kernels import rotated_iou as K
+    from coalign_tpu_torch.train import validate
+    val_loss = validate(model, loss, spec, batcher, scenes, TRAIN_BATCH)
+    check(np.isfinite(val_loss), "validation loss is not finite")
+    infer = make_infer_fn(model, spec.anchors, {
+        "target_args": YAML_TARGETS, "nms_thresh": 0.15,
+        "gt_range": FULL_ARGS["lidar_range"],
+        "dir_args": FULL_ARGS["dir_args"], "max_num": 100})
+    K.rotated_iou.launches = 0
+    dets = infer(batch)
+    torch.cuda.synchronize()
+    launches = K.rotated_iou.launches
+    check(launches >= 1, "the eval batch launched no rotated_iou")
+    check(tuple(dets["corners3d"].shape) == (TRAIN_BATCH, 100, 8, 3),
+          f"eval boxes of shape {tuple(dets['corners3d'].shape)}")
+    kept = dets["corners3d"][dets["mask"]]
+    check(bool(torch.isfinite(kept).all()), "a kept eval box is not finite")
+    return {"val_loss": val_loss, "boxes_kept": int(dets["mask"].sum()),
+            "launches_per_eval_batch": launches}
+
+
+def _tiny_parity_batch() -> dict:
+    """The CPU tests' training batch (tests/test_torch_train.py): two
+    2-agent frames in a max_cav 3 batch (a padded agent slot) of 2500
+    points (padded point slots)."""
+    from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    scenes = SyntheticScenes(**E2E_SCENES)
+    return IntermediateFusionBatcher(
+        max_cav=3, max_points=2500, max_objects=16,
+        lidar_range=E2E_RANGE).assemble([scenes[0], scenes[1]])
+
+
+def _one_sgd_step(device: str, dtype: torch.dtype, batch: dict):
+    """One make_train_step of the tiny flagship (seed 0) with SGD (lr
+    1e-2) on ``device`` in ``dtype``: (loss terms, gradients, state dict
+    after the step), on the CPU in float64."""
+    from coalign_tpu_torch.loss import build_loss
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
+    from coalign_tpu_torch.train import make_train_step
+    model = build_model({"core_method": "point_pillar_baseline_multiscale",
+                         "args": E2E_ARGS}, device=device, seed=0).to(dtype)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-2)
+    terms = make_train_step(model, build_loss(E2E_LOSS), make_anchor_spec(
+        E2E_ANCHORS, E2E_POSTPROCESS["target_args"]), opt,
+        device=device)(batch)
+    return ({k: float(v) for k, v in terms.items()},
+            {k: p.grad.detach().double().cpu()
+             for k, p in model.named_parameters()},
+            {k: v.double().cpu() for k, v in model.state_dict().items()
+             if v.is_floating_point()})
+
+
+def _max_rel(got: dict, want: dict) -> list:
+    """[largest |got - want| over its tensor's largest |want|, its key]."""
+    return max([float((got[k] - w).abs().max() / w.abs().max().clamp_min(
+        1e-30)), k] for k, w in want.items())
+
+
+def train_parity() -> dict:
+    """The CUDA step against the CPU step on the same seeded weights and
+    batch. In float32, the loss terms within 1e-4 relative and the running
+    statistics after the step within 1e-4 of each tensor's largest
+    magnitude: summation orders and grid_sample's atomics differ. In
+    float64, the loss terms, the gradients and the whole state after the
+    step (parameters after one SGD step, running statistics) within 1e-6:
+    the labels stay float32 (assigned from float32 gt boxes on each
+    device), and their regression targets differ by an ulp between the
+    devices' float32 log and trigonometry. The float32 gradients (and so
+    the parameters after the step) are reported, not held: two float32
+    runs can put a ReLU input that lies within rounding of 0 on different
+    sides, which moves that element's gradient by its whole value and
+    every gradient upstream of it by up to ~1e-2
+    (tests/test_torch_train.py)."""
+    batch = _tiny_parity_batch()
+    out = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-6)):
+        cpu_terms, cpu_grads, cpu_state = _one_sgd_step("cpu", dtype, batch)
+        terms, grads, state = _one_sgd_step("cuda", dtype, batch)
+        name = str(dtype).split(".")[-1]
+        running = [k for k in cpu_state if "running_" in k]
+        errs = {"loss_terms": max([abs(terms[k] - v) / abs(v), k]
+                                  for k, v in cpu_terms.items()),
+                "running_stats": _max_rel(
+                    state, {k: cpu_state[k] for k in running}),
+                "grads": _max_rel(grads, cpu_grads),
+                "state": _max_rel(state, cpu_state)}
+        held = (["loss_terms", "running_stats"] if dtype == torch.float32
+                else list(errs))
+        for key in held:
+            check(errs[key][0] <= tol, f"{name} {key}: {errs[key]}")
+        out[name] = {"bound": tol, "held": held, "rel_err": errs,
+                     "total_loss": terms["total_loss"]}
+    return out
+
+
+def train_to_ap(device=None) -> dict:
+    """tests/test_end2end.py's gate on the port: the tiny flagship (seed 42)
+    trained 250 Adam steps (lr 3e-3, eps 1e-10) on its two fixed frames,
+    then evaluated at B = 2 through make_infer_fn. Returns the losses and
+    the AP; the caller checks them."""
+    from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    from coalign_tpu_torch.inference import evaluate, gt_corners, make_infer_fn
+    from coalign_tpu_torch.loss import build_loss
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
+    from coalign_tpu_torch.train import build_optimizer, make_train_step
+    scenes = SyntheticScenes(**E2E_SCENES)
+    batch = IntermediateFusionBatcher(**E2E_BATCHER).assemble(
+        [scenes[0], scenes[1]])
+    model = build_model({"core_method": "point_pillar_baseline_multiscale",
+                         "args": E2E_ARGS}, device=device, seed=42)
+    spec = make_anchor_spec(E2E_ANCHORS, E2E_POSTPROCESS["target_args"])
+    opt, sched = build_optimizer(model.parameters(),
+                                 {"lr": 3e-3, "args": {"eps": 1e-10}})
+    step = make_train_step(model, build_loss(E2E_LOSS), spec, opt, sched,
+                           device=device)
+    losses = torch.stack([step(batch)["total_loss"]
+                          for _ in range(250)]).tolist()
+    infer = make_infer_fn(model, spec.anchors, E2E_POSTPROCESS,
+                          device=device)
+    result = evaluate(infer, [dict(batch, gt_corners=gt_corners(batch))])
+    return {"losses": losses, **result}
 
 
 def main() -> int:
@@ -530,7 +825,7 @@ def main() -> int:
     phase("serve", requests=20, ms_per_frame=per_call,
           frames_per_s=1000.0 / per_call, points_per_agent=n_points,
           agents=n_agents, canvas=[200, 704], card=card)
-    phase("profile", **profile_requests(infer, batch), card=card)
+    phase("profile", **profile_calls(lambda: infer(batch)), card=card)
 
     # 6. AP of the tiny flagship on the 10 recorded frames
     io_ap = np.load(os.path.join(GOLDEN, "e2e_ap_io.npz"))
@@ -557,6 +852,32 @@ def main() -> int:
     phase("ap", **ap, reference={k: float(io_ap[k])
                                  for k in ("ap30", "ap50", "ap70")})
 
+    # 7. training: full width, its profile, CUDA against CPU, train to AP
+    train, (model, loss, spec, batcher, scenes, step, train_batch) = \
+        train_full(card)
+    phase("train", **train)
+    train.update(train_eval(model, loss, spec, batcher, scenes, train_batch))
+    phase("train_eval", **{k: train[k] for k in (
+        "val_loss", "boxes_kept", "launches_per_eval_batch")})
+    phase("train_profile", **profile_calls(lambda: step(train_batch), 1),
+          card=card)
+    del model, step, train_batch
+    phase("train_parity", **train_parity())
+    K.rotated_iou.launches = 0
+    gate = train_to_ap()
+    torch.cuda.synchronize()
+    ap_launches = K.rotated_iou.launches
+    losses = gate.pop("losses")
+    check(losses[-1] < 0.05 * losses[0],
+          f"loss did not drop: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(gate["frames"] == 2, f"evaluated {gate['frames']} frames")
+    check(gate["ap30"] > 0.8 and gate["ap50"] > 0.6,
+          f"AP too low after training: {gate}")
+    check(ap_launches >= 1, "the AP evaluation launched no rotated_iou")
+    phase("train_ap", steps=250, first_loss=losses[0], last_loss=losses[-1],
+          loss_every_50=losses[::50], **gate,
+          rotated_iou_launches=ap_launches)
+
     # the kernel on the main path's own input (one frame's 512 boxes), on
     # that input stacked 8 times (the NMS of a B=8 batch, one launch) and on
     # 8 frames of boxes packed into 20 m x 20 m (the cull's worst case)
@@ -579,6 +900,8 @@ def main() -> int:
         "shape": main["shape"],
         "launches": launches,
         "launches_per_frame": launches,
+        "launches_per_train_step": train["launches_per_train_step"],
+        "launches_per_eval_batch": train["launches_per_eval_batch"],
         "max_abs_err": main["max_abs_err"],
         "max_abs_diff": main["max_abs_err"],
         "ms": main["kernel_ms"],

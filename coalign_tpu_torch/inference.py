@@ -15,6 +15,7 @@ from torch.profiler import record_function
 from coalign_tpu_torch.postprocess.decode import post_process
 from coalign_tpu_torch.runtime import configure_cuda, resolve_device
 from coalign_tpu_torch.utils import eval_utils as E
+from coalign_tpu_torch.utils.box_utils import boxes_to_corners_3d
 
 _BATCH_DTYPES = {"points": torch.float32, "point_mask": torch.bool,
                  "agent_mask": torch.bool,
@@ -22,13 +23,23 @@ _BATCH_DTYPES = {"points": torch.float32, "point_mask": torch.bool,
                  "transformation_matrix": torch.float32}
 
 
-def to_device(batch: dict, device) -> dict:
-    """The batch keys the model reads, as tensors on ``device``."""
+def to_device(batch: dict, device, float_dtype=torch.float32) -> dict:
+    """The batch keys the model reads, as tensors on ``device``; the float
+    ones as ``float_dtype`` (a float64 model's inputs are float64)."""
     out = {}
     for key, dtype in _BATCH_DTYPES.items():
         if key in batch:
+            dtype = float_dtype if dtype.is_floating_point else dtype
             out[key] = torch.as_tensor(batch[key], dtype=dtype, device=device)
     return out
+
+
+def gt_corners(batch: dict) -> list:
+    """A batcher's padded gt (gt_boxes (B, M, 7) hwl, gt_mask (B, M)) as
+    evaluate's ``gt_corners``: one (M_b, 8, 3) array per frame, as the JAX
+    package's evaluate builds them."""
+    return [boxes_to_corners_3d(np.asarray(b)[np.asarray(m)], "hwl")
+            for b, m in zip(batch["gt_boxes"], batch["gt_mask"])]
 
 
 def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):

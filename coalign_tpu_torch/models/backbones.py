@@ -28,12 +28,15 @@ class ResNetBEVBackbone(nn.Module):
             [deblock(c_in, c_out, s)
              for c_in, c_out, s in zip(num_filters, up_filters, ups)])
 
-    def encode(self, x: torch.Tensor) -> tuple:
-        """(F, C, H, W) -> per-scale features."""
-        return self.resnet(x)
+    def encode(self, x: torch.Tensor, mask=None) -> tuple:
+        """(F, C, H, W) -> per-scale features; ``mask`` (F,) leaves padded
+        agents out of the trunk norms' training statistics."""
+        return self.resnet(x, mask)
 
     def decode(self, features) -> torch.Tensor:
-        """Per-scale deblocks + channel concat -> (F, sum(C_up), H/2, W/2)."""
+        """Per-scale deblocks + channel concat -> (F, sum(C_up), H/2, W/2).
+        Its norms take no mask: after fusion every map is real (the JAX
+        package passes mask=None here)."""
         ups = [deb(f) for deb, f in zip(self.deblocks, features)]
         return torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]
 

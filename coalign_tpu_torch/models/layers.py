@@ -15,8 +15,16 @@ load strictly:
   * DownsampleConv: ref downsample_conv.py:30, the shrink header.
   * MaskedBatchNorm: the channel-last batch norm of the pillar network.
 
-This slice runs inference only: the batch norms use their running
-statistics.
+Every batch norm is the JAX package's MaskedBatchNorm (models/layers.py:
+40-75), not torch's: in training it normalizes by the batch statistics,
+weighted by a mask of valid elements where one is given (padded points,
+padded agents), and moves its running statistics with momentum 0.01 (flax's
+0.99) towards the batch mean and the *biased* batch variance, where
+nn.BatchNorm takes the unbiased one. In eval it uses its running
+statistics and the mask has no effect. The momentum is the JAX package's
+everywhere; ref resblock.py keeps BatchNorm2d's default 0.1 in the trunk,
+a place where the JAX package and the reference disagree and the port
+follows the JAX package.
 """
 
 from __future__ import annotations
@@ -24,30 +32,101 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01  # torch convention; the JAX package's 0.99
 
 
-class MaskedBatchNorm(nn.BatchNorm1d):
-    """Batch norm over the last axis of (..., C) point features.
+def _masked_moments(x: torch.Tensor, mask, channel_dim: int):
+    """Per-channel mean and biased variance of ``x`` over every axis but
+    ``channel_dim``, each element weighted by ``mask`` (broadcast over the
+    channels; bool or float) where given."""
+    dims = tuple(d for d in range(x.dim()) if d != channel_dim % x.dim())
+    if mask is None:
+        mean = x.mean(dims, keepdim=True)
+        return mean, ((x - mean) ** 2).mean(dims, keepdim=True)
+    w = mask.to(x.dtype).unsqueeze(channel_dim).expand_as(x)
+    denom = torch.clamp(w.sum(dims, keepdim=True), min=1.0)
+    mean = (x * w).sum(dims, keepdim=True) / denom
+    return mean, (w * (x - mean) ** 2).sum(dims, keepdim=True) / denom
 
-    The JAX package's MaskedBatchNorm weights its training statistics by a
-    mask of valid points; with running statistics (eval) the mask has no
-    effect, and that is the only mode this slice runs. Parameter names are
+
+class _MaskedNorm:
+    """The JAX package's MaskedBatchNorm on the state of an nn.BatchNorm*
+    (weight, bias, running_mean, running_var, num_batches_tracked, so
+    reference checkpoints load); ``channel_dim`` is where its channels
+    are."""
+
+    channel_dim: int
+
+    def _batch_stats(self, x, mask):
+        """Training: the batch statistics, and the running statistics moved
+        towards them, both on the autograd graph (flax's updated
+        batch_stats are traced values too); the buffers take a detached
+        copy."""
+        mean, var = _masked_moments(x, mask, self.channel_dim)
+        m = self.momentum
+        run_mean = (1 - m) * self.running_mean + m * mean.reshape(-1)
+        run_var = (1 - m) * self.running_var + m * var.reshape(-1)
+        with torch.no_grad():
+            self.running_mean.copy_(run_mean)
+            self.running_var.copy_(run_var)
+            self.num_batches_tracked += 1
+        return (mean, var), (run_mean, run_var)
+
+    def _normalize(self, x, mean, var):
+        shape = [1] * x.dim()
+        shape[self.channel_dim] = -1
+        inv = self.weight.reshape(shape) / torch.sqrt(
+            var.reshape(shape) + self.eps)
+        return (x - mean.reshape(shape)) * inv + self.bias.reshape(shape)
+
+
+class MaskedBatchNorm(_MaskedNorm, nn.BatchNorm1d):
+    """Batch norm over the last axis of (..., C) point features; ``mask``
+    (...) weights its training statistics. Parameter names are
     BatchNorm1d's (ref pillar_vfe.py PFNLayer.norm)."""
+
+    channel_dim = -1
 
     def __init__(self, num_features: int, eps: float = BN_EPS):
         super().__init__(num_features, eps=eps, momentum=BN_MOMENTUM)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask=None, pad_rows=None):
+        """(normalized ``x``, normalized ``pad_rows`` or None). The pad rows
+        are normalized by the running statistics as this call leaves them
+        (in training, just updated and on the autograd graph), as the JAX
+        package's pad-parity track reads them
+        (coalign_tpu/models/pillar_encoder.py:77-82): they neither read nor
+        move the batch statistics."""
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm runs with running statistics only; "
-                "training is not ported yet")
-        inv = self.weight / torch.sqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * inv + self.bias
+            (mean, var), running = self._batch_stats(x, mask)
+        else:
+            mean, var = running = self.running_mean, self.running_var
+        return (self._normalize(x, mean, var),
+                None if pad_rows is None
+                else self._normalize(pad_rows, *running))
+
+
+class MaskedBatchNorm2d(_MaskedNorm, nn.BatchNorm2d):
+    """Batch norm of (F, C, H, W) maps; ``mask`` (F,) leaves padded agents'
+    maps out of the training statistics (the JAX package's ``bn_mask``).
+    In eval it is nn.BatchNorm2d's (cuDNN's) inference."""
+
+    channel_dim = 1
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__(num_features, eps=eps, momentum=BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        mask = None if mask is None else mask[:, None, None]
+        (mean, var), _ = self._batch_stats(x, mask)
+        return self._normalize(x, mean, var)
 
 
 class BasicBlock(nn.Module):
@@ -57,20 +136,23 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = MaskedBatchNorm2d(planes)
         self.relu = nn.ReLU(inplace=True)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = MaskedBatchNorm2d(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(planes))
+                MaskedBatchNorm2d(planes))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        """x (F, C, H, W); mask (F,) of the frames that are real agents."""
+        identity = x
+        if self.downsample is not None:
+            identity = self.downsample[1](self.downsample[0](x), mask)
+        out = self.relu(self.bn1(self.conv1(x), mask))
+        out = self.bn2(self.conv2(out), mask)
         return self.relu(out + identity)
 
 
@@ -89,10 +171,11 @@ class ResNetTrunk(nn.Module):
             self.add_module(f"layer{s}", nn.Sequential(*blocks))
             inplanes = planes
 
-    def forward(self, x: torch.Tensor) -> tuple:
+    def forward(self, x: torch.Tensor, mask=None) -> tuple:
         outs = []
         for s in range(self.num_stages):
-            x = getattr(self, f"layer{s}")(x)
+            for block in getattr(self, f"layer{s}"):
+                x = block(x, mask)
             outs.append(x)
         return tuple(outs)
 
@@ -106,8 +189,7 @@ def deblock(in_ch: int, out_ch: int, stride: float) -> nn.Sequential:
     else:
         s = int(round(1 / stride))
         conv = nn.Conv2d(in_ch, out_ch, s, stride=s, bias=False)
-    return nn.Sequential(conv, nn.BatchNorm2d(out_ch, eps=BN_EPS,
-                                              momentum=BN_MOMENTUM),
+    return nn.Sequential(conv, MaskedBatchNorm2d(out_ch, eps=BN_EPS),
                          nn.ReLU(inplace=True))
 
 

@@ -22,11 +22,18 @@ class PFNLayer(nn.Module):
         self.linear = nn.Linear(in_ch, out_ch, bias=not use_norm)
         self.norm = MaskedBatchNorm(out_ch) if use_norm else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                pad_parity: bool = False):
+        """relu(norm(linear(x))) of the points (F, N, C_in), the norm's
+        training statistics over the valid points ``mask`` (F, N); with
+        ``pad_parity`` also the (C,) row of a zeroed pad slot, normalized by
+        the running statistics (MaskedBatchNorm's ``pad_rows``)."""
         x = self.linear(x)
+        z = self.linear(x.new_zeros(self.linear.in_features)) \
+            if pad_parity else None
         if self.norm is not None:
-            x = self.norm(x)
-        return torch.relu(x)
+            x, z = self.norm(x, mask, pad_rows=z)
+        return torch.relu(x), None if z is None else torch.relu(z)
 
 
 class PillarEncoder(nn.Module):
@@ -68,11 +75,9 @@ class PillarEncoder(nn.Module):
         if self.with_distance:
             dist = torch.linalg.norm(points[..., :3], dim=-1, keepdim=True)
             feats = torch.cat([feats, dist], dim=-1)
-        layer = self.pfn_layers[0]
-        x = layer(feats) * valid[..., None]
-        bev = P.scatter_max_bev(x, ids, valid, spec)        # (F, cells, C)
-        if self.pad_parity:
-            z = layer(feats.new_zeros(feats.shape[-1]))     # (C,)
+        x, z = self.pfn_layers[0](feats, valid, self.pad_parity)
+        bev = P.scatter_max_bev(x * valid[..., None], ids, valid, spec)
+        if z is not None:                                   # (C,)
             occupied = P.pillar_count_bev(ids, valid, spec)[..., None] > 0
             bev = torch.where(occupied, torch.maximum(bev, z), bev)
         return bev.reshape(f, spec.ny, spec.nx, -1).permute(0, 3, 1, 2) \

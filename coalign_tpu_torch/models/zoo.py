@@ -2,7 +2,7 @@
 
 Port of coalign_tpu/models/zoo.py:164-213 ``PointPillarBaselineMultiscale``
 (ref point_pillar_baseline_multiscale.py:17; point_pillar_coalign.py:9
-aliases it as the CoAlign model). Inference only in this slice.
+aliases it as the CoAlign model), for inference and training.
 
 Batch contract (the JAX package's):
   points            (B, L, N, 4) float   raw lidar in each agent's frame
@@ -15,6 +15,9 @@ dir_preds (B, bins*A, ...).
 
 from __future__ import annotations
 
+import math
+
+import torch
 from torch import nn
 from torch.profiler import record_function
 
@@ -72,7 +75,8 @@ class PointPillarBaselineMultiscale(nn.Module):
             bev = self.pillar_vfe(batch["points"].reshape(b * l, n, -1),
                                   batch["point_mask"].reshape(b * l, n))
         with record_function("stage/backbone_encode"):
-            feats = self.backbone.encode(bev)
+            feats = self.backbone.encode(bev,
+                                         batch["agent_mask"].reshape(b * l))
         with record_function("stage/fusion"):
             affine = normalize_pairwise_tfm(batch["pairwise_t_matrix"],
                                             self.spec.ny, self.spec.nx,
@@ -97,13 +101,46 @@ _MODELS = {
 }
 
 
-def build_model(config: dict, device=None) -> nn.Module:
+def _lecun_normal_(weight: torch.Tensor, fan_in: int,
+                   generator: torch.Generator):
+    """flax's default kernel init: a normal truncated at 2 standard
+    deviations, scaled so that its variance is 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+
+
+def init_weights(model: nn.Module, generator: torch.Generator):
+    """The JAX package's initialization (flax's defaults): lecun_normal
+    kernels with fan_in = input width times kernel area (flax counts a
+    ConvTranspose's input channels too), zero biases, batch norms with
+    scale 1, bias 0, running mean 0 and variance 1."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+                mod.reset_parameters()
+            elif isinstance(mod, nn.Linear):
+                _lecun_normal_(mod.weight, mod.in_features, generator)
+            elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+                _lecun_normal_(mod.weight, mod.in_channels
+                               * math.prod(mod.kernel_size), generator)
+            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)) \
+                    and mod.bias is not None:
+                mod.bias.zero_()
+
+
+def build_model(config: dict, device=None, seed: int = 0) -> nn.Module:
     """Build a model from the yaml ``model`` subtree (core_method + args),
     in eval mode on ``device`` (CUDA unless named; see
-    runtime.resolve_device). Weights are random until a checkpoint is
-    loaded (utils/weights.py)."""
+    runtime.resolve_device); ``model.train()`` switches it to training.
+    Its weights are drawn on the CPU from ``torch.Generator().manual_seed(
+    seed)`` as the JAX package initializes them (init_weights), so a seed
+    gives the same model on every device; a checkpoint replaces them
+    (utils/weights.py)."""
     name = config["core_method"]
     if name not in _MODELS:
         raise KeyError(f"model {name!r} is not ported; have {sorted(_MODELS)}")
     dev = resolve_device(device)
-    return _MODELS[name](config["args"]).to(dev).eval()
+    model = _MODELS[name](config["args"])
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()

@@ -93,6 +93,30 @@ def decorate_points(points: torch.Tensor, ids: torch.Tensor,
     return feats * ones[..., None]
 
 
+class _ScatterMax(torch.autograd.Function):
+    """Max of the rows of ``feats`` into ``rows`` canvas rows by ``gid``,
+    over a zero canvas, with the JAX package's backward
+    (scatter_max_bev_cvjp, coalign_tpu/ops/pillars.py:337-401): every valid
+    point whose feature equals its row's maximum takes the row's whole
+    cotangent. torch's own amax backward splits a tie among the tying
+    elements and the canvas's zero, which the JAX package does not."""
+
+    @staticmethod
+    def forward(ctx, feats, gid, valid, rows):
+        canvas = torch.zeros((rows, feats.shape[1]), dtype=feats.dtype,
+                             device=feats.device)
+        canvas.scatter_reduce_(0, gid[:, None].expand(-1, feats.shape[1]),
+                               feats, reduce="amax", include_self=True)
+        ctx.save_for_backward(feats, gid, valid, canvas)
+        return canvas
+
+    @staticmethod
+    def backward(ctx, grad):
+        feats, gid, valid, canvas = ctx.saved_tensors
+        win = valid[:, None] & (feats == canvas[gid])
+        return torch.where(win, grad[gid], 0.0), None, None, None
+
+
 def scatter_max_bev(point_feats: torch.Tensor, ids: torch.Tensor,
                     valid: torch.Tensor, spec: PillarSpec) -> torch.Tensor:
     """Max-reduce per-point features into the dense BEV canvas.
@@ -100,14 +124,12 @@ def scatter_max_bev(point_feats: torch.Tensor, ids: torch.Tensor,
     point_feats (F, N, C) post-ReLU (non-negative), ids/valid (F, N) ->
     (F, ny * nx, C); empty pillars are 0, the reference's zero canvas. The
     canvas starts at 0 and takes the max with it, which for non-negative
-    features is the JAX package's -inf -> 0 clamp."""
+    features is the JAX package's -inf -> 0 clamp. Its gradient goes whole
+    to every valid point that attains its pillar's maximum (_ScatterMax)."""
     f, n, c = point_feats.shape
     gid = global_ids(ids, valid, spec)
-    canvas = torch.zeros((f * spec.ny * spec.nx + 1, c),
-                         dtype=point_feats.dtype, device=point_feats.device)
-    canvas.scatter_reduce_(0, gid[:, None].expand(-1, c),
-                           point_feats.reshape(f * n, c), reduce="amax",
-                           include_self=True)
+    canvas = _ScatterMax.apply(point_feats.reshape(f * n, c), gid,
+                               valid.reshape(-1), f * spec.ny * spec.nx + 1)
     return canvas[:-1].reshape(f, spec.ny * spec.nx, c)
 
 

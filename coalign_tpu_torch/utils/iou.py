@@ -12,6 +12,8 @@ and the host evaluation (``utils/eval_utils.py``) calls it on CPU tensors.
 pairs that the kernel clears without computing them. It is not on any
 computing path; the tests hold it against the JAX package, and
 ``chip_smoke.py`` counts the cleared pairs for the kernel's bound.
+
+:func:`standup_iou` is the axis-aligned IoU of the anchor assignment.
 """
 
 from __future__ import annotations
@@ -24,6 +26,27 @@ import torch
 SEPARATION_MARGIN = 1e-2   # metres between the two circumcircles
 MIN_EDGE = 0.1             # metres; a shorter edge makes a box degenerate
 SQUARE_COS = 1e-2          # a corner's |cos| above this makes it degenerate
+
+
+def standup_iou(boxes: torch.Tensor, query_boxes: torch.Tensor,
+                offset: float = 0.0) -> torch.Tensor:
+    """IoU of axis-aligned [x1, y1, x2, y2] boxes (port of
+    coalign_tpu/utils/iou.py:24). boxes (..., N, 4), query_boxes (..., K, 4)
+    -> (..., N, K); ``offset=1.0`` is Faster-RCNN's +1 size convention of
+    the reference's Cython bbox_overlaps, which the anchor assignment
+    uses."""
+    area1 = ((boxes[..., 2] - boxes[..., 0] + offset)
+             * (boxes[..., 3] - boxes[..., 1] + offset))
+    area2 = ((query_boxes[..., 2] - query_boxes[..., 0] + offset)
+             * (query_boxes[..., 3] - query_boxes[..., 1] + offset))
+    b, q = boxes[..., :, None, :], query_boxes[..., None, :, :]
+    iw = torch.minimum(b[..., 2], q[..., 2]) - torch.maximum(b[..., 0],
+                                                             q[..., 0]) + offset
+    ih = torch.minimum(b[..., 3], q[..., 3]) - torch.maximum(b[..., 1],
+                                                             q[..., 1]) + offset
+    inter = torch.clamp(iw, min=0.0) * torch.clamp(ih, min=0.0)
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return torch.where(union > 0, inter / union, 0.0)
 
 
 def polygon_area(corners: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Pose <-> SE(3) transforms and pairwise agent transforms.
 
 Port of coalign_tpu/utils/transforms.py (ref
-opencood/utils/transformation_utils.py). Products of transforms are written
-out elementwise, so they stay in full float32 on the GPU whatever the TF32
-settings are.
+opencood/utils/transformation_utils.py). Products of torch transforms are
+written out elementwise, so they stay in full float32 on the GPU whatever
+the TF32 settings are. Numpy inputs (the host batcher's) take the JAX
+package's numpy calls (``np.matmul``, ``np.einsum``), so host batches come
+out bit for bit as the JAX package's do.
 
 Conventions (the reference's):
   * A 6-DoF pose is ``[x, y, z, roll, yaw, pitch]`` in degrees, CARLA axes.
@@ -14,11 +16,16 @@ Conventions (the reference's):
 
 from __future__ import annotations
 
+import numpy as np
+
 from coalign_tpu_torch.utils.common import array_namespace, const
 
 
 def matmul_f32(a, b):
-    """(..., I, J) @ (..., J, K) as a sum of elementwise products."""
+    """(..., I, J) @ (..., J, K): for torch a sum of elementwise products,
+    for numpy ``np.matmul``."""
+    if array_namespace(a, b) is np:
+        return np.matmul(a, b)
     return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
 
 
@@ -72,6 +79,11 @@ def inverse_tfm(tfm):
     return xp.concatenate([top, bottom], axis=-2)
 
 
+def x1_to_x2_tfm(pose1, pose2):
+    """T_2<-1 from two poses (ref transformation_utils.py x1_to_x2)."""
+    return matmul_f32(inverse_tfm(pose_to_tfm(pose2)), pose_to_tfm(pose1))
+
+
 def get_pairwise_transformation(lidar_poses, agent_mask):
     """Pairwise T_j<-i for all agent pairs.
 
@@ -85,7 +97,10 @@ def get_pairwise_transformation(lidar_poses, agent_mask):
     mask = agent_mask[None] if squeeze else agent_mask
     t_wx = pose_to_tfm(poses)                          # (B, L, 4, 4)
     t_xw = inverse_tfm(t_wx)
-    out = matmul_f32(t_xw[:, None, :], t_wx[:, :, None])  # [b,i,j] = xw_j wx_i
+    if xp is np:                                       # [b,i,j] = xw_j wx_i
+        out = np.einsum("bjxy,biyz->bijxz", t_xw, t_wx)
+    else:
+        out = matmul_f32(t_xw[:, None, :], t_wx[:, :, None])
     valid = mask[:, :, None] & mask[:, None, :]
     eye = xp.broadcast_to(const(xp, [[float(r == c) for c in range(4)]
                                      for r in range(4)], out), out.shape)
@@ -116,7 +131,11 @@ def project_points(points, tfm):
     """Apply (..., 4, 4) transforms to (..., N, 3+C) points, keeping the
     extra channels (ref box_utils.py:319)."""
     xp = array_namespace(points, tfm)
-    rot = tfm[..., None, :3, :3]                       # (..., 1, 3, 3)
-    xyz = points[..., None, :3]                        # (..., N, 1, 3)
-    new_xyz = (rot * xyz).sum(-1) + tfm[..., None, :3, 3]
+    if xp is np:
+        new_xyz = (np.einsum("...ij,...nj->...ni", tfm[..., :3, :3],
+                             points[..., :3]) + tfm[..., None, :3, 3])
+    else:
+        rot = tfm[..., None, :3, :3]                   # (..., 1, 3, 3)
+        xyz = points[..., None, :3]                    # (..., N, 1, 3)
+        new_xyz = (rot * xyz).sum(-1) + tfm[..., None, :3, 3]
     return xp.concatenate([new_xyz, points[..., 3:]], axis=-1)

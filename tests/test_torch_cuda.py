@@ -124,3 +124,27 @@ def test_nms_on_cuda_matches_cpu(cuda):
     assert K.rotated_iou.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_train_step_on_cuda_matches_cpu(cuda):
+    # chip_smoke.py's train_parity: float32 loss terms and running
+    # statistics within 1e-4, float64 loss terms, gradients and state
+    # within 1e-6 (see its docstring for the bounds, and for why the
+    # float32 gradients are not held)
+    from chip_smoke import train_parity
+    out = train_parity()
+    assert set(out) == {"float32", "float64"}
+
+
+@pytest.mark.cuda
+def test_prefetch_copies_to_the_card_in_order(cuda):
+    from coalign_tpu_torch.data.prefetch import prefetch
+    batches = [{"x": np.full((64, 1000), i, np.float32),
+                "m": np.arange(7) % 2 == i % 2} for i in range(6)]
+    got = list(prefetch(iter(batches), size=2))
+    assert len(got) == 6
+    for i, b in enumerate(got):
+        assert b["x"].device.type == "cuda" and b["m"].dtype == torch.bool
+        assert bool((b["x"] == i).all())
+        assert torch.equal(b["m"].cpu(), torch.from_numpy(batches[i]["m"]))
