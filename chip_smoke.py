@@ -29,11 +29,27 @@ Phases, each printing one JSON line with its elapsed seconds:
      train_parity    the tiny flagship's step on CUDA against the CPU;
      train_ap   tests/test_end2end.py's gate on the card: the tiny
              flagship trained 250 steps on two frames, then AP;
-Then one JSON line describing each kernel, timed at three shapes (the main
+  8. stage1  CoAlign's stage-1 detector at full width (pointpillar_
+             uncertainty.yaml's widths, the flagship checkpoint's shared
+             weights and a seeded uncertainty head) on the recording's 5
+             agents: CUDA against the CPU (head maps, per-agent box sets,
+             uncertainties), one IoU-kernel launch over the 5 agent frames;
+  9. posegraph   the pose graph at full size (B=4, L=5, K=24) on oracle
+             detections of synthetic scenes: CUDA float32 against CPU
+             float64, no host sync inside, the corrected pairwise error
+             below 0.3 of the noisy one; ms at B=1 and B=4;
+ 10. coalign the two-pass request, B=1, 20 frames with the yaml's pose
+             noise: stage-1, pose graph, flagship, post-processing; 2 IoU
+             launches a request, ms beside the flagship alone, the pose
+             errors before and after;
+     coalign_profile   torch.profiler over 5 requests, with the
+             stage/stage1 and stage/pose_graph ranges beside the flagship's;
+Then one JSON line describing each kernel, timed at four shapes (the main
 path's NMS input; that input stacked 8 times, a B=8 batch's one launch; 8
-frames of densely packed boxes) beside its bound and the time of one launch
-that writes the same output (out.zero_()), the card's name and power limit,
-and as the last line {"ok": true, "device": {...}}. Any failed check raises,
+frames of densely packed boxes; the stage-1 NMS input over 5 agent frames)
+beside its bound and the time of one launch that writes the same output
+(out.zero_()), the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}. Any failed check raises,
 so the exit code is not 0. make_infer_fn runs float32 in full float32
 (TF32 off) and lets cuDNN autotune (runtime.configure_cuda).
 
@@ -173,6 +189,27 @@ E2E_SCENES = dict(num_frames=4, num_agents=2, num_objects=4,
                   object_spread=0.55, seed=7)
 E2E_BATCHER = dict(max_cav=2, max_points=2500, max_objects=16,
                    lidar_range=E2E_RANGE, comm_range=70.0)
+
+# CoAlign's first pass at full width: the stage-1 detector of
+# coalign_tpu/hypes_yaml/opv2v/pointpillar_uncertainty.yaml (the flagship's
+# pillar encoder, ResNet [3,5,8] trunk, deblocks, shrink and heads without
+# fusion, plus a log-variance head) and its post-processing, K = 24 boxes an
+# agent; the pose graph with pointpillar_coalign.yaml's box_align args and
+# pose noise. The oracle detections' noise is
+# tests/test_stage1_uncertainty.py's.
+STAGE1_ARGS = {**{k: v for k, v in FULL_ARGS.items()
+                  if k not in ("fusion_method", "att")},
+               "uncertainty_dim": 3}
+STAGE1_POSTPROCESS = {"target_args": YAML_TARGETS, "nms_thresh": 0.15,
+                      "gt_range": FULL_ARGS["lidar_range"],
+                      "dir_args": FULL_ARGS["dir_args"]}
+STAGE1_BOXES = 24
+YAML_BOX_ALIGN = {"use_uncertainty": True, "landmark_SE2": True,
+                  "adaptive_landmark": False, "normalize_uncertainty": False,
+                  "abandon_hard_cases": True, "drop_hard_boxes": True}
+YAML_NOISE = {"pos_std": 0.2, "rot_std": 0.2}
+ORACLE_NOISE = {"pos_std": 0.4, "rot_std": 2.0}
+COALIGN_REQUESTS = 20
 
 # published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, HBM3 bandwidth
@@ -427,7 +464,8 @@ def profile_calls(fn, reps: int = 5) -> dict:
     autograd's own thread, outside its range, so the "backward" stage's
     device time is that of the kernels launched by autograd's engine; the
     device kernels' total per call and their share of the call's wall time;
-    the five kernels with the most device time."""
+    the kernels' launches per call; the five kernels with the most device
+    time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     fn()
@@ -457,6 +495,7 @@ def profile_calls(fn, reps: int = 5) -> dict:
     return {"calls": reps, "stages": stages,
             "call_wall_ms": wall_ms,
             "device_kernel_ms": device_ms,
+            "device_kernel_launches": sum(e.count for e in kernels) / reps,
             "device_busy_share": device_ms / wall_ms,
             "top_kernels": [[e.key[:72],
                              e.self_device_time_total / reps / 1e3,
@@ -486,24 +525,34 @@ def fullscale_batch():
     return golden_batch(io, keys, io["pairwise"], n_points), io
 
 
+def match_boxes(ours_c, ref_c) -> tuple:
+    """Greedy 1:1 match of the reference's (M, 8, 3) corners to ours:
+    (for each reference box, the index of ours and their IoU)."""
+    from coalign_tpu_torch.utils.iou import rotated_iou_plain
+    iou = rotated_iou_plain(torch.from_numpy(ref_c[:, :4, :2].copy()),
+                            torch.from_numpy(ours_c[:, :4, :2].copy())).numpy()
+    taken = np.zeros(len(ours_c), bool)
+    index, best = [], []
+    for i in range(len(ref_c)):
+        masked = np.where(taken, -1.0, iou[i])
+        j = int(np.argmax(masked))
+        taken[j] = True
+        index.append(j)
+        best.append(float(masked[j]))
+    return np.array(index, int), np.array(best)
+
+
 def match_box_sets(ours_c, ours_s, ref_c, ref_s):
     """Greedy 1:1 match of the reference boxes to ours (as in
     tests/test_golden_fullscale.py): same count, IoU > 0.95, score
     difference < 1e-3; raises AssertionError otherwise. Returns (min IoU,
     max score difference)."""
-    from coalign_tpu_torch.utils.iou import rotated_iou_plain
     check(len(ours_c) == len(ref_c),
           f"box count {len(ours_c)} vs reference {len(ref_c)}")
-    iou = rotated_iou_plain(torch.from_numpy(ref_c[:, :4, :2].copy()),
-                            torch.from_numpy(ours_c[:, :4, :2].copy())).numpy()
-    taken = np.zeros(len(ours_c), bool)
-    worst_iou, worst_ds = 1.0, 0.0
-    for i in range(len(ref_c)):
-        masked = np.where(taken, -1.0, iou[i])
-        j = int(np.argmax(masked))
-        taken[j] = True
-        worst_iou = min(worst_iou, float(masked[j]))
-        worst_ds = max(worst_ds, abs(float(ref_s[i] - ours_s[j])))
+    index, iou = match_boxes(ours_c, ref_c)
+    worst_iou = float(iou.min()) if len(iou) else 1.0
+    worst_ds = float(np.abs(ref_s - ours_s[index]).max()) if len(iou) \
+        else 0.0
     check(worst_iou > 0.95, f"unmatched box: best IoU {worst_iou:.4f}")
     check(worst_ds < 1e-3, f"score drift {worst_ds:.2e}")
     return worst_iou, worst_ds
@@ -714,6 +763,284 @@ def train_to_ap(device=None) -> dict:
     return {"losses": losses, **result}
 
 
+def oracle_stage1(frames, batch, k: int = STAGE1_BOXES) -> dict:
+    """tests/test_stage1_uncertainty.py's oracle stage-1 detections for a
+    batch assembled from ``frames``: each frame's first ``k`` gt boxes in
+    each agent's clean frame (the batch's lidar_pose_clean), x, y and yaw
+    in radians, all with log-variance -3."""
+    from coalign_tpu_torch.utils.transforms import inverse_tfm, pose_to_tfm
+    b, l = batch["agent_mask"].shape
+    poses = np.zeros((b, l, k, 3), np.float32)
+    mask = np.zeros((b, l, k), bool)
+    for bi, frame in enumerate(frames):
+        gt = frame["objects"]["boxes"][:k]
+        xyz1 = np.concatenate([gt[:, :3], np.ones((len(gt), 1))], -1)
+        for a in np.flatnonzero(batch["agent_mask"][bi]):
+            pose = batch["lidar_pose_clean"][bi, a]
+            local = xyz1 @ inverse_tfm(pose_to_tfm(pose)).T
+            poses[bi, a, :len(gt)] = np.stack(
+                [local[:, 0], local[:, 1], gt[:, 6] - np.deg2rad(pose[4])],
+                -1)
+            mask[bi, a, :len(gt)] = True
+    return {"box_poses": poses, "box_mask": mask,
+            "uncertainty": np.full((b, l, k, 3), -3.0, np.float32)}
+
+
+def pairwise_error(pairwise, batch) -> float:
+    """Largest translation error of a batch's pairwise transforms against
+    those of its clean poses (tests/test_stage1_uncertainty.py's measure)."""
+    from coalign_tpu_torch.utils.transforms import get_pairwise_transformation
+    clean = get_pairwise_transformation(batch["lidar_pose_clean"],
+                                        batch["agent_mask"])
+    got = pairwise.cpu().numpy() if isinstance(pairwise, torch.Tensor) \
+        else pairwise
+    return float(np.abs(got[..., :2, 3] - clean[..., :2, 3]).max())
+
+
+def pose_diff(got, want) -> tuple:
+    """Largest |x, y| difference (m) and yaw difference (degrees, wrapped)
+    of two (..., 3) x, y, yaw-degrees tensors."""
+    d = (got.double().cpu() - want.double().cpu()).abs()
+    dyaw = (d[..., 2] + 180.0) % 360.0 - 180.0
+    return float(d[..., :2].max()), float(dyaw.abs().max())
+
+
+def stage1_model(device):
+    """The stage-1 detector at full width (STAGE1_ARGS, seed 0) with every
+    weight but its uncertainty head from the flagship checkpoint."""
+    from coalign_tpu_torch.models.zoo import build_model
+    model = build_model({"core_method": "point_pillar_uncertainty",
+                         "args": STAGE1_ARGS}, device=device, seed=0)
+    sd = torch.load(os.path.join(GOLDEN, "fullscale_multiscale.pth"),
+                    map_location="cpu", weights_only=True)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    check(sorted(missing) == ["unc_head.bias", "unc_head.weight"]
+          and not unexpected, f"checkpoint keys: missing {missing}, "
+          f"unexpected {unexpected}")
+    return model
+
+
+def stage1_check(card) -> tuple:
+    """The stage1 phase: the full-width stage-1 fn on the recording's 5
+    agents, on CUDA against the same on the CPU: head maps within 2e-3
+    (the full phase's bound), each agent's kept boxes matched with
+    match_box_sets' bounds (IoU > 0.95, score within 1e-3) and their
+    log-variances within 1e-3; one IoU-kernel launch, at (5, 512). Returns
+    (the phase's fields, the CUDA stage-1 fn, the kernel's input)."""
+    from coalign_tpu_torch.inference import to_device
+    from coalign_tpu_torch.kernels import rotated_iou as K
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.tools.stage1 import make_stage1_fn
+    from coalign_tpu_torch.utils import nms as nms_module
+    from coalign_tpu_torch.utils.box_utils import boxes_to_corners_3d
+    batch, _ = fullscale_batch()
+    anchors = generate_anchor_box(FULL_ANCHORS)
+    models = {dev: stage1_model(dev) for dev in ("cuda", "cpu")}
+    fns = {dev: make_stage1_fn(m, anchors, STAGE1_POSTPROCESS, STAGE1_BOXES,
+                               device=dev) for dev, m in models.items()}
+    with torch.no_grad():
+        maps = {dev: m(to_device(batch, dev)) for dev, m in models.items()}
+    map_err = {k: (v.cpu() - maps["cpu"][k]).abs().max().item()
+               for k, v in maps["cuda"].items()}
+    for key, err in map_err.items():
+        check(err < 2e-3, f"stage-1 {key}: CUDA vs CPU {err:.2e}")
+
+    captured = []
+    kernel_fn = nms_module.rotated_iou
+
+    def capture(c1, c2):
+        captured.append(c1.clone())
+        return kernel_fn(c1, c2)
+
+    nms_module.rotated_iou = capture
+    try:
+        fns["cuda"](batch)
+    finally:
+        nms_module.rotated_iou = kernel_fn
+    K.rotated_iou.launches = 0
+    dets = fns["cuda"](batch)
+    torch.cuda.synchronize()
+    launches = K.rotated_iou.launches
+    check(launches == 1, f"{launches} IoU launches in one stage-1 call")
+    check(tuple(captured[0].shape) == (5, 512, 4, 2),
+          f"stage-1 NMS input {tuple(captured[0].shape)}")
+    ref = fns["cpu"](batch)
+    dets = {k: v.cpu().numpy() for k, v in dets.items()}
+    ref = {k: v.numpy() for k, v in ref.items()}
+    worst_iou, worst_ds, worst_unc, kept = 1.0, 0.0, 0.0, []
+    for a in range(batch["agent_mask"].shape[1]):
+        ours, want = dets["box_mask"][0, a], ref["box_mask"][0, a]
+        ours_c = boxes_to_corners_3d(dets["boxes7"][0, a][ours], "hwl")
+        ref_c = boxes_to_corners_3d(ref["boxes7"][0, a][want], "hwl")
+        iou, ds = match_box_sets(ours_c, dets["scores"][0, a][ours], ref_c,
+                                 ref["scores"][0, a][want])
+        index, _ = match_boxes(ours_c, ref_c)
+        unc = np.abs(dets["uncertainty"][0, a][ours][index]
+                     - ref["uncertainty"][0, a][want])
+        worst_iou, worst_ds = min(worst_iou, iou), max(worst_ds, ds)
+        worst_unc = max([worst_unc] + unc.ravel().tolist())
+        kept.append(int(ours.sum()))
+    check(worst_unc <= 1e-3, f"stage-1 uncertainty: CUDA vs CPU {worst_unc}")
+    ms = event_ms(lambda: fns["cuda"](batch), reps=10)
+    return ({"agents": len(kept), "boxes_per_agent": kept,
+             "map_max_abs_err": map_err, "min_matched_iou": worst_iou,
+             "max_score_diff": worst_ds, "max_uncertainty_diff": worst_unc,
+             "rotated_iou_launches": launches,
+             "nms_shape": list(captured[0].shape[:2]), "ms_per_call": ms,
+             "card": card}, fns["cuda"], captured[0])
+
+
+def posegraph_check(card) -> dict:
+    """The posegraph phase: the pose graph at full size, B = 4 frames of
+    L = 5 agents and K = 24 oracle boxes (20 objects) of synthetic scenes
+    at the train phase's scale, with tests/test_stage1_uncertainty.py's
+    noise (0.4 m, 2 degrees) and abandon_hard_cases off. CUDA float32
+    against CPU float64: refined poses within 2e-3 m and 2e-3 degrees, the
+    same abandoned samples; no host sync inside (sync debug mode "error");
+    the corrected pairwise error on CUDA below 0.3 of the noisy one. Then
+    the time of align_poses_batch at B = 1 and 4, at that noise and at the
+    yaml's (0.2 m, 0.2 degrees, the yaml's box_align args), and its device
+    time against its wall time."""
+    from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    from coalign_tpu_torch.posegraph import BoxAlignConfig, align_poses_batch
+    from coalign_tpu_torch.posegraph.box_align import align_xyyaw
+    from coalign_tpu_torch.tools.stage1 import correct_batch_poses
+    scenes = SyntheticScenes(num_frames=TRAIN_BATCH, **TRAIN_SCENES)
+    frames = [scenes[i] for i in range(TRAIN_BATCH)]
+    keys = ("box_poses", "box_mask", "uncertainty")
+
+    def inputs(batch, dets, device, dtype=torch.float32):
+        out = [torch.as_tensor(x, device=device) for x in (
+            *(dets[k] for k in keys), batch["lidar_pose"],
+            batch["agent_mask"])]
+        return [x.to(dtype) if x.is_floating_point() else x for x in out]
+
+    out = {"batch": TRAIN_BATCH, "agents": TRAIN_BATCHER["max_cav"],
+           "boxes_per_agent": STAGE1_BOXES, "card": card}
+    oracle = BoxAlignConfig(abandon_hard_cases=False)
+    yaml_cfg = BoxAlignConfig.from_yaml(YAML_BOX_ALIGN)
+    for name, noise, cfg in (("oracle_noise", ORACLE_NOISE, oracle),
+                             ("yaml_noise", YAML_NOISE, yaml_cfg)):
+        batch = IntermediateFusionBatcher(**TRAIN_BATCHER, **noise).assemble(
+            frames)
+        dets = oracle_stage1(frames, batch)
+        gpu = inputs(batch, dets, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = align_xyyaw(*gpu, cfg=cfg)
+            align_poses_batch(*gpu, cfg=cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = align_xyyaw(*inputs(batch, dets, "cpu", torch.float64),
+                           cfg=cfg)
+        dxy, dyaw = pose_diff(got["refined"], want["refined"])
+        check(dxy <= 2e-3 and dyaw <= 2e-3, f"{name}: CUDA float32 vs CPU "
+              f"float64 pose {dxy:.2e} m, {dyaw:.2e} deg")
+        check(torch.equal(got["abandoned"].cpu(), want["abandoned"]),
+              f"{name}: abandoned samples differ")
+        corrected = correct_batch_poses(batch, dets, cfg)
+        noisy_err = pairwise_error(batch["pairwise_t_matrix"], batch)
+        corr_err = pairwise_error(corrected["pairwise_t_matrix"], batch)
+        if name == "oracle_noise":
+            check(noisy_err > 0.3 and corr_err < 0.3 * noisy_err,
+                  f"pairwise error {noisy_err:.4f} -> {corr_err:.4f}")
+        out[name] = {
+            **noise, "box_align": cfg._asdict(),
+            "max_pose_diff_m": dxy, "max_yaw_diff_deg": dyaw,
+            "abandoned": got["abandoned"].tolist(),
+            "noisy_pairwise_err_m": noisy_err,
+            "corrected_pairwise_err_m": corr_err,
+            "ms_b4": event_ms(lambda: align_poses_batch(*gpu, cfg=cfg), 20),
+            "ms_b1": event_ms(lambda: align_poses_batch(
+                *(x[:1] for x in gpu), cfg=cfg), 20)}
+    prof = profile_calls(lambda: align_poses_batch(*gpu, cfg=yaml_cfg))
+    out["profile_b4"] = {k: prof[k] for k in (
+        "call_wall_ms", "device_kernel_ms", "device_busy_share",
+        "device_kernel_launches", "top_kernels")}
+    return out
+
+
+def coalign_check(card, stage1, infer) -> tuple:
+    """The coalign phase: the two-pass request at full width, B = 1, on
+    20 synthetic frames at the train phase's scale with the yaml's pose
+    noise: stage-1 (``stage1``), correct_batch_poses with the yaml's
+    box_align args, the flagship's ``infer``. Checks: 2 IoU launches a
+    request, finite kept boxes of the flagship's shape, the corrected poses
+    on CUDA within 2e-3 m and 2e-3 degrees of the CPU's from the same
+    stage-1 detections. Reports ms a request with correction and for the
+    flagship alone on the same frames and the relative pose errors before
+    and after (not gated: the weights never saw these scenes). Returns (the
+    phase's fields, the request fn, a frame to profile it on)."""
+    import itertools
+
+    from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    from coalign_tpu_torch.kernels import rotated_iou as K
+    from coalign_tpu_torch.posegraph import BoxAlignConfig
+    from coalign_tpu_torch.tools.pose_graph_eval import (relative_pose_errors,
+                                                         summarize)
+    from coalign_tpu_torch.tools.stage1 import correct_batch_poses
+    scenes = SyntheticScenes(num_frames=COALIGN_REQUESTS, **TRAIN_SCENES)
+    batcher = IntermediateFusionBatcher(**TRAIN_BATCHER, **YAML_NOISE)
+    frames = [batcher.assemble([scenes[i]]) for i in range(COALIGN_REQUESTS)]
+    cfg = BoxAlignConfig.from_yaml(YAML_BOX_ALIGN)
+
+    def request(batch):
+        return infer(correct_batch_poses(batch, stage1(batch), cfg))
+
+    request(frames[0])
+    torch.cuda.synchronize()
+    K.rotated_iou.launches = 0
+    dets = request(frames[1])
+    torch.cuda.synchronize()
+    launches = K.rotated_iou.launches
+    check(launches == 2, f"{launches} IoU launches in one CoAlign request")
+    check(tuple(dets["corners3d"].shape) == (1, 100, 8, 3),
+          f"boxes of shape {tuple(dets['corners3d'].shape)}")
+    check(bool(torch.isfinite(dets["corners3d"][dets["mask"]]).all()),
+          "a kept box is not finite")
+
+    first = stage1(frames[1])
+    gpu = correct_batch_poses(frames[1], first, cfg)
+    cpu = correct_batch_poses(frames[1], {k: v.cpu() for k, v in
+                                          first.items()}, cfg, device="cpu")
+    dxy, dyaw = pose_diff(gpu["lidar_pose"][..., [0, 1, 4]],
+                          cpu["lidar_pose"][..., [0, 1, 4]])
+    check(dxy <= 2e-3 and dyaw <= 2e-3,
+          f"corrected pose CUDA vs CPU {dxy:.2e} m, {dyaw:.2e} deg")
+
+    errs = {"before": ([], []), "after": ([], [])}
+    abandoned = 0
+    for frame in frames:
+        corrected = correct_batch_poses(frame, stage1(frame), cfg)
+        after = corrected["lidar_pose"].cpu().numpy()
+        abandoned += int(np.array_equal(after, frame["lidar_pose"]))
+        for key, poses in (("before", frame["lidar_pose"]), ("after", after)):
+            t, r = relative_pose_errors(poses, frame["lidar_pose_clean"],
+                                        frame["agent_mask"])
+            errs[key][0].append(t)
+            errs[key][1].append(r)
+
+    it = itertools.cycle(frames)
+    ms = event_ms(lambda: request(next(it)), reps=COALIGN_REQUESTS)
+    it = itertools.cycle(frames)
+    flagship_ms = event_ms(lambda: infer(next(it)), reps=COALIGN_REQUESTS)
+    return {"requests": COALIGN_REQUESTS, "batch": 1,
+            "agents": TRAIN_BATCHER["max_cav"], **YAML_NOISE,
+            "rotated_iou_launches_per_request": launches,
+            "corrected_pose_cuda_vs_cpu": [dxy, dyaw],
+            "ms_per_frame": ms, "frames_per_s": 1000.0 / ms,
+            "flagship_ms_per_frame": flagship_ms,
+            "flagship_frames_per_s": 1000.0 / flagship_ms,
+            "frames_left_uncorrected": abandoned,
+            "pose_error": {key: summarize(np.concatenate(t),
+                                          np.concatenate(r))
+                           for key, (t, r) in errs.items()},
+            "card": card}, request, frames[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -827,6 +1154,15 @@ def main() -> int:
           agents=n_agents, canvas=[200, 704], card=card)
     phase("profile", **profile_calls(lambda: infer(batch)), card=card)
 
+    # 8-10. CoAlign's pose correction: stage-1, the pose graph, the request
+    fields, stage1, stage1_nms_input = stage1_check(card)
+    phase("stage1", **fields)
+    phase("posegraph", **posegraph_check(card))
+    coalign, request, frame = coalign_check(card, stage1, infer)
+    phase("coalign", **coalign)
+    phase("coalign_profile", **profile_calls(lambda: request(frame)),
+          card=card)
+
     # 6. AP of the tiny flagship on the 10 recorded frames
     io_ap = np.load(os.path.join(GOLDEN, "e2e_ap_io.npz"))
     tiny = build_model({"core_method": "point_pillar_baseline_multiscale",
@@ -879,13 +1215,15 @@ def main() -> int:
           rotated_iou_launches=ap_launches)
 
     # the kernel on the main path's own input (one frame's 512 boxes), on
-    # that input stacked 8 times (the NMS of a B=8 batch, one launch) and on
-    # 8 frames of boxes packed into 20 m x 20 m (the cull's worst case)
+    # that input stacked 8 times (the NMS of a B=8 batch, one launch), on
+    # 8 frames of boxes packed into 20 m x 20 m (the cull's worst case) and
+    # on the stage-1 NMS input (5 agent frames, one launch)
     c = captured[0]
     shapes = {"main_path": c,
               "batch8": c.expand(8, -1, -1, -1).contiguous(),
               "dense": torch.from_numpy(np.stack(
-                  [seeded_corners(c.shape[1], s) for s in range(8)])).to(dev)}
+                  [seeded_corners(c.shape[1], s) for s in range(8)])).to(dev),
+              "stage1": stage1_nms_input}
     timed = {name: time_shape(x) for name, x in shapes.items()}
     # per call with CUDA events (host launch overhead included)
     kernel_call_ms = event_ms(lambda: K.rotated_iou(c, c), reps=200)
@@ -902,6 +1240,8 @@ def main() -> int:
         "launches_per_frame": launches,
         "launches_per_train_step": train["launches_per_train_step"],
         "launches_per_eval_batch": train["launches_per_eval_batch"],
+        "launches_per_coalign_request":
+            coalign["rotated_iou_launches_per_request"],
         "max_abs_err": main["max_abs_err"],
         "max_abs_diff": main["max_abs_err"],
         "ms": main["kernel_ms"],

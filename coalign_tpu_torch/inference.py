@@ -82,13 +82,23 @@ def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):
     return infer
 
 
-def evaluate(infer, frames) -> dict:
+def evaluate(infer, frames, batch_hook=None) -> dict:
     """AP over ``frames``: each a batch dict for ``infer`` plus
     ``gt_corners``, a list with one (M, 8, 3) array per sample of the
-    batch. Returns {'ap30', 'ap50', 'ap70', 'frames'}."""
+    batch. Returns {'ap30', 'ap50', 'ap70', 'frames'}.
+
+    ``batch_hook(batch, frame_ids) -> batch`` maps each batch before
+    ``infer``; ``frame_ids`` are the running indices of its samples (as
+    coalign_tpu/inference.py:253-256). CoAlign's pose correction is such a
+    hook: online, ``lambda batch, ids: correct_batch_poses(batch,
+    stage1(batch), cfg)``; offline, ``correct_batch_poses_from_json`` on a
+    stage-1 json's content (tools/stage1.py)."""
     stat = E.new_result_stat()
     count = 0
     for frame in frames:
+        if batch_hook is not None:
+            frame = batch_hook(frame, list(range(
+                count, count + len(frame["gt_corners"]))))
         dets = {k: v.cpu().numpy() for k, v in infer(frame).items()}
         for bi, gt in enumerate(frame["gt_corners"]):
             keep = dets["mask"][bi]

@@ -1,8 +1,9 @@
-"""Detection heads: 1x1 convs for cls / reg / dir, ported from
+"""Detection heads: 1x1 convs for cls / reg / dir / uncertainty, ported from
 coalign_tpu/models/heads.py. They sit at the top level of the reference
-models (``cls_head``, ``reg_head``, ``dir_head``; ref
-point_pillar_baseline_multiscale.py), so they are attached to the model
-itself rather than to a submodule. Outputs are NCHW."""
+models (``cls_head``, ``reg_head``, ``dir_head``, ``unc_head``; ref
+point_pillar_baseline_multiscale.py, point_pillar_uncertainty.py), so they
+are attached to the model itself rather than to a submodule. Outputs are
+NCHW."""
 
 from __future__ import annotations
 
@@ -10,16 +11,25 @@ import torch
 from torch import nn
 
 
-def add_detection_heads(model: nn.Module, in_ch: int, anchor_number: int,
-                        use_dir: bool, num_bins: int = 2):
-    model.cls_head = nn.Conv2d(in_ch, anchor_number, 1)
-    model.reg_head = nn.Conv2d(in_ch, 7 * anchor_number, 1)
-    model.dir_head = (nn.Conv2d(in_ch, num_bins * anchor_number, 1)
-                      if use_dir else None)
+def add_detection_heads(model: nn.Module, in_ch: int, args: dict):
+    """The heads a model's yaml ``args`` ask for: cls and reg always, dir
+    with ``dir_args``, the log-variance head (``uncertainty_dim`` x
+    anchors channels) with ``uncertainty_dim``."""
+    if args.get("use_iou_head", False):
+        raise NotImplementedError("the IoU head is not ported yet")
+    a = args["anchor_number"]
+    model.cls_head = nn.Conv2d(in_ch, a, 1)
+    model.reg_head = nn.Conv2d(in_ch, 7 * a, 1)
+    model.dir_head = (nn.Conv2d(in_ch, args["dir_args"].get("num_bins", 2) * a,
+                                1) if "dir_args" in args else None)
+    model.unc_head = (nn.Conv2d(in_ch, args["uncertainty_dim"] * a, 1)
+                      if "uncertainty_dim" in args else None)
 
 
 def detection_heads(model: nn.Module, x: torch.Tensor) -> dict:
     out = {"cls_preds": model.cls_head(x), "reg_preds": model.reg_head(x)}
     if model.dir_head is not None:
         out["dir_preds"] = model.dir_head(x)
+    if model.unc_head is not None:
+        out["unc_preds"] = model.unc_head(x)
     return out

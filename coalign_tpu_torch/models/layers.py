@@ -12,6 +12,11 @@ load strictly:
     below 1) + BatchNorm2d(eps 1e-3) + ReLU. The JAX package's
     TorchConvTranspose2d exists to reproduce nn.ConvTranspose2d in flax;
     here it is nn.ConvTranspose2d itself.
+  * conv_bn_relu / ConvStage: ref base_bev_backbone.py:30-60, the plain
+    SECOND-style stage ``blocks.{i}``: ZeroPad2d(1), a strided 3x3 conv,
+    then n 3x3 convs, each conv followed by BatchNorm2d(eps 1e-3) and a
+    ReLU (the JAX package's ConvBNReLU / ConvStage, models/layers.py:85,
+    157, which pads the strided conv by 1 on each side: the same).
   * DownsampleConv: ref downsample_conv.py:30, the shrink header.
   * MaskedBatchNorm: the channel-last batch norm of the pillar network.
 
@@ -180,7 +185,39 @@ class ResNetTrunk(nn.Module):
         return tuple(outs)
 
 
-def deblock(in_ch: int, out_ch: int, stride: float) -> nn.Sequential:
+def conv_bn_relu(in_ch: int, out_ch: int, stride: int = 1,
+                 padding: int = 1) -> list:
+    """[3x3 conv without bias, masked batch norm (eps 1e-3), ReLU]: the
+    JAX package's ConvBNReLU as three entries of a Sequential, where the
+    reference keeps them."""
+    return [nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=padding,
+                      bias=False),
+            MaskedBatchNorm2d(out_ch, eps=BN_EPS), nn.ReLU(inplace=True)]
+
+
+class MaskedSequential(nn.Sequential):
+    """A Sequential whose ``forward(x, mask)`` passes the agent mask (F,)
+    to its masked batch norms."""
+
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        for mod in self:
+            x = mod(x, mask) if isinstance(mod, MaskedBatchNorm2d) else mod(x)
+        return x
+
+
+class ConvStage(MaskedSequential):
+    """ZeroPad2d(1) + a strided conv_bn_relu without padding, then
+    ``num_convs`` stride-1 conv_bn_relus (ref base_bev_backbone.py:30-60;
+    parameter names ``{1,2,4,5,...}``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int, num_convs: int):
+        mods = [nn.ZeroPad2d(1), *conv_bn_relu(in_ch, out_ch, stride, 0)]
+        for _ in range(num_convs):
+            mods += conv_bn_relu(out_ch, out_ch)
+        super().__init__(*mods)
+
+
+def deblock(in_ch: int, out_ch: int, stride: float) -> MaskedSequential:
     """Upsample (transposed conv) or downsample block of the decode stage
     (ref base_bev_backbone_resnet.py:51-77)."""
     if stride >= 1:
@@ -189,8 +226,8 @@ def deblock(in_ch: int, out_ch: int, stride: float) -> nn.Sequential:
     else:
         s = int(round(1 / stride))
         conv = nn.Conv2d(in_ch, out_ch, s, stride=s, bias=False)
-    return nn.Sequential(conv, MaskedBatchNorm2d(out_ch, eps=BN_EPS),
-                         nn.ReLU(inplace=True))
+    return MaskedSequential(conv, MaskedBatchNorm2d(out_ch, eps=BN_EPS),
+                            nn.ReLU(inplace=True))
 
 
 class DoubleConv(nn.Module):

@@ -1,16 +1,25 @@
-"""The CoAlign flagship: PointPillars with per-scale intermediate fusion.
+"""The PointPillars models of the port: the CoAlign flagship and the
+single-agent detectors.
 
-Port of coalign_tpu/models/zoo.py:164-213 ``PointPillarBaselineMultiscale``
-(ref point_pillar_baseline_multiscale.py:17; point_pillar_coalign.py:9
-aliases it as the CoAlign model), for inference and training.
+Ports of coalign_tpu/models/zoo.py:
+  * PointPillarBaselineMultiscale (:164-213; ref
+    point_pillar_baseline_multiscale.py:17, aliased as the CoAlign model by
+    point_pillar_coalign.py:9): PointPillars with per-scale intermediate
+    fusion;
+  * PointPillar (:82-106; ref point_pillar.py:17): one agent's detector,
+    no fusion;
+  * PointPillarUncertainty (:440-449; ref point_pillar_uncertainty.py:15):
+    PointPillar with a log-variance head, CoAlign's stage-1 detector that
+    feeds the pose graph (tools/stage1.py).
 
 Batch contract (the JAX package's):
   points            (B, L, N, 4) float   raw lidar in each agent's frame
   point_mask        (B, L, N)    bool
   agent_mask        (B, L)       bool    (ego is slot 0)
-  pairwise_t_matrix (B, L, L, 4, 4)      T_j<-i agent transforms
+  pairwise_t_matrix (B, L, L, 4, 4)      T_j<-i agent transforms (flagship)
 Outputs NCHW: cls_preds (B, A, H/2, W/2), reg_preds (B, 7A, ...),
-dir_preds (B, bins*A, ...).
+dir_preds (B, bins*A, ...), unc_preds (B, unc_dim*A, ...); the single-agent
+models give them per agent frame, on (B*L, ...).
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
-from coalign_tpu_torch.models.backbones import ResNetBEVBackbone
+from coalign_tpu_torch.models.backbones import backbone_from_config
 from coalign_tpu_torch.models.fuse.fusion import build_fusion
 from coalign_tpu_torch.models.heads import add_detection_heads, detection_heads
 from coalign_tpu_torch.models.layers import DownsampleConv
@@ -31,17 +40,13 @@ from coalign_tpu_torch.runtime import resolve_device
 from coalign_tpu_torch.utils.transforms import normalize_pairwise_tfm
 
 
-class PointPillarBaselineMultiscale(nn.Module):
-    """Pillar encoder -> ResNet encode -> per-scale fusion -> decode ->
-    shrink -> heads (ref point_pillar_baseline_multiscale.py:93-138)."""
+class _PillarBase(nn.Module):
+    """The modules every PointPillars model has, under the reference's
+    names: pillar_vfe, backbone, shrink_conv (with ``shrink_header``) and
+    the heads."""
 
     def __init__(self, args: dict):
         super().__init__()
-        for key in ("supervise_single", "compression"):
-            if args.get(key):
-                raise NotImplementedError(f"{key!r} is not ported yet")
-        if not args["base_bev_backbone"].get("resnet", True):
-            raise NotImplementedError("only the ResNet BEV backbone is ported")
         self.args = dict(args)
         self.spec = PillarSpec.from_config(args["lidar_range"],
                                            args["voxel_size"])
@@ -53,18 +58,33 @@ class PointPillarBaselineMultiscale(nn.Module):
             use_absolute_xyz=vfe.get("use_absolute_xyz", True),
             pad_parity=vfe.get("pad_parity", False))
         bb = args["base_bev_backbone"]
-        self.backbone = ResNetBEVBackbone(bb, vfe["num_filters"][-1])
-        feat_dims = args.get("att", {}).get("feat_dim", list(bb["num_filters"]))
-        self.fusion_net = nn.ModuleList(
-            [build_fusion(args["fusion_method"], feat_dims[i])
-             for i in range(len(bb["layer_nums"]))])
+        self.backbone = backbone_from_config(bb, vfe["num_filters"][-1])
         self.shrink_conv = (DownsampleConv(args["shrink_header"])
                             if "shrink_header" in args else None)
         head_in = (args["shrink_header"]["dim"][-1] if "shrink_header" in args
                    else sum(bb["num_upsample_filter"]))
-        add_detection_heads(self, head_in, args["anchor_number"],
-                            "dir_args" in args,
-                            args.get("dir_args", {}).get("num_bins", 2))
+        add_detection_heads(self, head_in, args)
+
+    def _shrink_heads(self, x: torch.Tensor) -> dict:
+        if self.shrink_conv is not None:
+            x = self.shrink_conv(x)
+        return detection_heads(self, x)
+
+
+class PointPillarBaselineMultiscale(_PillarBase):
+    """Pillar encoder -> backbone encode -> per-scale fusion -> decode ->
+    shrink -> heads (ref point_pillar_baseline_multiscale.py:93-138)."""
+
+    def __init__(self, args: dict):
+        for key in ("supervise_single", "compression"):
+            if args.get(key):
+                raise NotImplementedError(f"{key!r} is not ported yet")
+        super().__init__(args)
+        bb = args["base_bev_backbone"]
+        feat_dims = args.get("att", {}).get("feat_dim", list(bb["num_filters"]))
+        self.fusion_net = nn.ModuleList(
+            [build_fusion(args["fusion_method"], feat_dims[i])
+             for i in range(len(bb["layer_nums"]))])
 
     def forward(self, batch: dict) -> dict:
         # the "stage/..." ranges name the stages in a torch.profiler trace
@@ -85,10 +105,30 @@ class PointPillarBaselineMultiscale(nn.Module):
                           batch["agent_mask"])
                      for fuse, feat in zip(self.fusion_net, feats)]
         with record_function("stage/decode_shrink_heads"):
-            x = self.backbone.decode(fused)
-            if self.shrink_conv is not None:
-                x = self.shrink_conv(x)
-            return detection_heads(self, x)
+            return self._shrink_heads(self.backbone.decode(fused))
+
+
+class PointPillar(_PillarBase):
+    """One agent's detector (ref point_pillar.py:17): every agent frame of
+    the batch goes through the model on its own, with no fusion. Padded
+    agents' frames stay out of the norms' training statistics (the agent
+    mask, as models/zoo.py:99-102 passes it)."""
+
+    def forward(self, batch: dict) -> dict:
+        b, l, n, _ = batch["points"].shape
+        bev = self.pillar_vfe(batch["points"].reshape(b * l, n, -1),
+                              batch["point_mask"].reshape(b * l, n))
+        return self._shrink_heads(self.backbone(
+            bev, batch["agent_mask"].reshape(b * l)))
+
+
+class PointPillarUncertainty(PointPillar):
+    """PointPillar with a log-variance head of ``uncertainty_dim`` (default
+    3: x, y, yaw) channels per anchor, CoAlign's stage-1 detector (ref
+    point_pillar_uncertainty.py:15)."""
+
+    def __init__(self, args: dict):
+        super().__init__({"uncertainty_dim": 3, **args})
 
 
 class CoAlign(PointPillarBaselineMultiscale):
@@ -96,6 +136,8 @@ class CoAlign(PointPillarBaselineMultiscale):
 
 
 _MODELS = {
+    "point_pillar": PointPillar,
+    "point_pillar_uncertainty": PointPillarUncertainty,
     "point_pillar_baseline_multiscale": PointPillarBaselineMultiscale,
     "point_pillar_coalign": CoAlign,
 }

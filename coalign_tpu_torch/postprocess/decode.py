@@ -58,18 +58,22 @@ def correct_direction(boxes7, dir_logits, dir_offset: float, num_bins: int):
 
 
 def post_process(cls_preds, reg_preds, anchors, transformation_matrix,
-                 dir_preds=None, *, score_threshold: float,
+                 dir_preds=None, unc_preds=None, *, score_threshold: float,
                  nms_threshold: float, gt_range, prefilter_k: int = 512,
                  max_keep: int = 100, dir_offset: float = 0.7853,
                  num_bins: int = 2) -> dict:
     """Head maps of a batch -> final boxes.
 
     cls_preds (B, A, H, W) logits, reg_preds (B, 7A, H, W), dir_preds
-    (B, bins*A, H, W) or None, anchors (H, W, A, 7) 'hwl',
-    transformation_matrix (B, 4, 4) to the ego frame.
+    (B, bins*A, H, W) or None, unc_preds (B, U*A, H, W) log-variances or
+    None, anchors (H, W, A, 7) 'hwl', transformation_matrix (B, 4, 4) to the
+    ego frame.
 
     Returns corners3d (B, max_keep, 8, 3), boxes7 (B, max_keep, 7), scores
-    (B, max_keep) and mask (B, max_keep) bool, ranked by score; entries with
+    (B, max_keep) and mask (B, max_keep) bool, ranked by score, and with
+    unc_preds uncertainty (B, max_keep, U), each box's log-variances carried
+    through the top-K gather and the NMS ranking (ref
+    uncertainty_voxel_postprocessor.py post_process_stage1); entries with
     mask False are zero.
     """
     b = cls_preds.shape[0]
@@ -109,16 +113,23 @@ def post_process(cls_preds, reg_preds, anchors, transformation_matrix,
                               nms_threshold)
 
     p = corners.shape[1]
-    ranked = torch.cat([corners.reshape(b, p, 24), sel_boxes,
-                        sel_scores[..., None]], dim=-1)
+    parts = [corners.reshape(b, p, 24), sel_boxes, sel_scores[..., None]]
+    if unc_preds is not None:
+        a = cls_preds.shape[1]
+        parts.append(take(_rows(unc_preds, unc_preds.shape[1] // a)))
+    ranked = torch.cat(parts, dim=-1)
     top = order[:, :max_keep]
-    ranked = torch.gather(ranked, 1, top[..., None].expand(-1, -1, 32))
+    ranked = torch.gather(ranked, 1, top[..., None].expand(
+        -1, -1, ranked.shape[-1]))
     ranked_corners = ranked[..., :24].reshape(b, -1, 8, 3)
     keep = keep[:, :max_keep] & B.mask_corners_all_inside_range(
         ranked_corners, gt_range)
-    return {
+    out = {
         "corners3d": ranked_corners * keep[..., None, None],
         "boxes7": ranked[..., 24:31] * keep[..., None],
         "scores": torch.where(keep, ranked[..., 31], 0.0),
         "mask": keep,
     }
+    if unc_preds is not None:
+        out["uncertainty"] = ranked[..., 32:] * keep[..., None]
+    return out

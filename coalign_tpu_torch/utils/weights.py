@@ -2,11 +2,13 @@
 
 Port modules carry the reference opencood state-dict names, so a reference
 checkpoint loads with ``load_state_dict(strict=True)`` (:func:`load_pth`).
-:func:`from_jax_params` turns the variables of a coalign_tpu flagship model
-(``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy arrays)
+:func:`from_jax_params` turns the variables of a coalign_tpu PointPillars
+model (the flagship, ``point_pillar``, ``point_pillar_uncertainty``;
+``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy arrays)
 into such a state dict: it is the inverse of the PointPillars-family maps of
-coalign_tpu/utils/ckpt_import.py (``_map_pfn``, ``_map_resnet_trunk``,
-``_map_deblocks``, ``_map_shrink`` and the head keys).
+coalign_tpu/utils/ckpt_import.py (``_map_pfn``, ``_map_resnet_trunk``, the
+plain backbone's stages, ``_map_deblocks`` with the extra deblock,
+``_map_shrink`` and the head keys).
 
 Layouts (flax -> torch):
   Dense kernel (in, out)                        -> Linear weight (out, in)
@@ -46,20 +48,15 @@ def _tconv(k):  # flipped (kh, kw, in, out) -> (in, out, kh, kw)
     return np.transpose(k[::-1, ::-1], (2, 3, 0, 1))
 
 
-def _block_names(paths) -> dict[int, str]:
-    """Global flax BasicBlock index -> 'layer{s}.{b}'. A stage starts at
-    each block with a downsample (Conv_2), which every first block of a
-    strided or widening stage has; a wrong split fails the strict load."""
-    blocks = sorted({int(m.group(1)) for p in paths
-                     if (m := re.match(r"backbone/trunk/BasicBlock_(\d+)/",
-                                       p))})
-    names, stage, pos = {}, -1, 0
-    for g in blocks:
-        if f"backbone/trunk/BasicBlock_{g}/Conv_2/kernel" in paths or \
-                stage < 0:
-            stage, pos = stage + 1, 0
-        names[g] = f"layer{stage}.{pos}"
-        pos += 1
+def _block_names(layer_nums) -> dict[int, str]:
+    """Global flax BasicBlock index -> 'layer{s}.{b}', stage by stage from
+    the backbone's ``layer_nums`` (flax numbers a trunk's blocks
+    BasicBlock_0, 1, ... across its stages)."""
+    names, g = {}, 0
+    for stage, n in enumerate(layer_nums):
+        for pos in range(n):
+            names[g] = f"layer{stage}.{pos}"
+            g += 1
     return names
 
 
@@ -70,7 +67,15 @@ _BN_FIELDS = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
 
 
-def _torch_key(path: str, blocks: dict) -> tuple[str, str]:
+def _deblock_key(prefix: str, mod: str, leaf: str) -> tuple[str, str]:
+    if mod == "ConvTranspose_0":
+        return f"{prefix}.0.weight", "tconv"
+    if mod == "Conv_0":
+        return f"{prefix}.0.weight", "conv"
+    return f"{prefix}.1.{_BN_FIELDS[leaf]}", "plain"
+
+
+def _torch_key(path: str, layer_nums) -> tuple[str, str]:
     """flax path -> (torch key, layout kind)."""
     parts = path.split("/")
     leaf = parts[-1]
@@ -82,41 +87,57 @@ def _torch_key(path: str, blocks: dict) -> tuple[str, str]:
         return (f"pillar_vfe.pfn_layers.{m.group(1)}.norm."
                 f"{_BN_FIELDS[leaf]}"), "plain"
     if m := re.fullmatch(r"backbone/trunk/BasicBlock_(\d+)/(\w+)/\w+", path):
+        block = _block_names(_need(layer_nums, path))[int(m.group(1))]
         part = _BLOCK_PARTS[m.group(2)]
         if part.startswith(("conv", "downsample.0")):
-            return f"backbone.resnet.{blocks[int(m.group(1))]}.{part}.weight", \
-                "conv"
-        return (f"backbone.resnet.{blocks[int(m.group(1))]}.{part}."
-                f"{_BN_FIELDS[leaf]}"), "plain"
-    if m := re.fullmatch(r"backbone/deblocks_(\d+)/(\w+)/\w+", path):
-        i, mod = m.groups()
-        if mod == "ConvTranspose_0":
-            return f"backbone.deblocks.{i}.0.weight", "tconv"
+            return f"backbone.resnet.{block}.{part}.weight", "conv"
+        return f"backbone.resnet.{block}.{part}.{_BN_FIELDS[leaf]}", "plain"
+    if m := re.fullmatch(
+            r"backbone/stages_(\d+)/ConvBNReLU_(\d+)/(\w+)/\w+", path):
+        i, j, mod = int(m.group(1)), int(m.group(2)), m.group(3)
         if mod == "Conv_0":
-            return f"backbone.deblocks.{i}.0.weight", "conv"
-        return f"backbone.deblocks.{i}.1.{_BN_FIELDS[leaf]}", "plain"
+            return f"backbone.blocks.{i}.{1 + 3 * j}.weight", "conv"
+        return f"backbone.blocks.{i}.{2 + 3 * j}.{_BN_FIELDS[leaf]}", "plain"
+    if m := re.fullmatch(r"backbone/deblocks_(\d+)/(\w+)/\w+", path):
+        return _deblock_key(f"backbone.deblocks.{m.group(1)}", m.group(2),
+                            leaf)
+    if m := re.fullmatch(r"backbone/extra_deblock/(\w+)/\w+", path):
+        levels = len(_need(layer_nums, path))
+        return _deblock_key(f"backbone.deblocks.{levels}", m.group(1), leaf)
     if m := re.fullmatch(r"shrink/Conv_(\d+)/(kernel|bias)", path):
         c = int(m.group(1))
         key = f"shrink_conv.layers.{c // 2}.double_conv.{2 * (c % 2)}"
         return (f"{key}.weight", "conv") if leaf == "kernel" else \
             (f"{key}.bias", "plain")
-    if m := re.fullmatch(r"heads/(cls|reg|dir)_head/(kernel|bias)", path):
+    if m := re.fullmatch(r"heads/(cls|reg|dir|unc)_head/(kernel|bias)", path):
         return (f"{m.group(1)}_head.weight", "conv") if leaf == "kernel" \
             else (f"{m.group(1)}_head.bias", "plain")
     raise KeyError(f"no port parameter for flax variable {path!r}")
 
 
-def from_jax_params(variables: dict) -> dict:
-    """coalign_tpu flagship variables (nested numpy dicts) -> port state
-    dict, including each batch norm's ``num_batches_tracked``."""
+def _need(layer_nums, path: str):
+    if layer_nums is None:
+        raise ValueError(f"{path!r} needs the backbone's layer_nums: pass "
+                         f"from_jax_params(..., layer_nums=...)")
+    return layer_nums
+
+
+def from_jax_params(variables: dict, layer_nums=None) -> dict:
+    """coalign_tpu PointPillars variables (nested numpy dicts) -> port
+    state dict, including each batch norm's ``num_batches_tracked``.
+
+    ``layer_nums`` is the backbone's (``base_bev_backbone.layer_nums`` of
+    the model's args): it says where each ResNet stage starts and which
+    deblock is the extra one. A tree with a trunk or an extra deblock
+    needs it; a stage's first block has a downsample conv only when it
+    strides or widens, so the names cannot tell."""
     flat = {**_flatten(variables.get("params", {})),
             **_flatten(variables.get("batch_stats", {}))}
-    blocks = _block_names(set(flat))
     convert = {"plain": lambda v: v, "linear": lambda v: v.T,
                "conv": _conv, "tconv": _tconv}
     sd = {}
     for path, value in flat.items():
-        key, kind = _torch_key(path, blocks)
+        key, kind = _torch_key(path, layer_nums)
         sd[key] = torch.from_numpy(np.array(convert[kind](value),
                                             dtype=np.float32))
         if key.endswith(".running_var"):

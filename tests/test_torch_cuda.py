@@ -148,3 +148,108 @@ def test_prefetch_copies_to_the_card_in_order(cuda):
         assert b["x"].device.type == "cuda" and b["m"].dtype == torch.bool
         assert bool((b["x"] == i).all())
         assert torch.equal(b["m"].cpu(), torch.from_numpy(batches[i]["m"]))
+
+
+@pytest.mark.cuda
+def test_stage1_on_cuda_matches_cpu(cuda):
+    # chip_smoke.py's stage1 phase: the full-width stage-1 detector on the
+    # recording's 5 agents, CUDA against the CPU (head maps within 2e-3,
+    # box sets IoU > 0.95 and scores within 1e-3, log-variances within
+    # 1e-3), one IoU launch at (5, 512)
+    from chip_smoke import stage1_check
+    fields, _, nms_input = stage1_check("test")
+    assert fields["rotated_iou_launches"] == 1
+    assert tuple(nms_input.shape) == (5, 512, 4, 2)
+
+
+@pytest.mark.cuda
+def test_pose_graph_on_cuda_matches_cpu_without_a_sync(cuda):
+    from chip_smoke import ORACLE_NOISE, oracle_stage1, pose_diff
+    from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    from coalign_tpu_torch.posegraph import BoxAlignConfig
+    from coalign_tpu_torch.posegraph.box_align import align_xyyaw
+    rng = [-40, -40, -3, 40, 40, 1]
+    scenes = SyntheticScenes(num_frames=3, num_agents=3, num_objects=10,
+                             lidar_range=rng, agent_spread=10.0)
+    frames = [scenes[i] for i in range(3)]
+    batch = IntermediateFusionBatcher(
+        max_cav=4, max_points=4000, max_objects=16, lidar_range=rng,
+        **ORACLE_NOISE).assemble(frames)
+    dets = oracle_stage1(frames, batch, 12)
+    args = [dets["box_poses"], dets["box_mask"], dets["uncertainty"],
+            batch["lidar_pose"], batch["agent_mask"]]
+    cfg = BoxAlignConfig(abandon_hard_cases=False)
+    on_card = [torch.as_tensor(a, device=cuda) for a in args]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = align_xyyaw(*on_card, cfg=cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = align_xyyaw(*[torch.as_tensor(a).double()
+                         if torch.as_tensor(a).is_floating_point()
+                         else torch.as_tensor(a) for a in args], cfg=cfg)
+    dxy, dyaw = pose_diff(got["refined"], want["refined"])
+    assert dxy <= 2e-3 and dyaw <= 2e-3, (dxy, dyaw)
+    assert torch.equal(got["labels"].cpu(), want["labels"])
+    assert torch.equal(got["abandoned"].cpu(), want["abandoned"])
+
+
+def _trunk_tree(layer_nums, strides, filters, in_ch, seed):
+    """A flax ResNetTrunk's variables (BasicBlock_0, 1, ... across its
+    stages), seeded."""
+    rng = np.random.default_rng(seed)
+    params, stats = {}, {}
+    g = 0
+    for n, stride, out in zip(layer_nums, strides, filters):
+        for pos in range(n):
+            cin = in_ch if pos == 0 else out
+            convs = [(3, cin), (3, out)]
+            if pos == 0 and (stride != 1 or cin != out):
+                convs.append((1, cin))
+            block, block_stats = {}, {}
+            for i, (k, c) in enumerate(convs):
+                block[f"Conv_{i}"] = {"kernel": rng.normal(
+                    0, 0.2, (k, k, c, out)).astype(np.float32)}
+                block[f"MaskedBatchNorm_{i}"] = {
+                    "scale": rng.uniform(0.5, 1.5, out).astype(np.float32),
+                    "bias": rng.normal(0, 0.1, out).astype(np.float32)}
+                block_stats[f"MaskedBatchNorm_{i}"] = {
+                    "mean": rng.normal(0, 0.1, out).astype(np.float32),
+                    "var": rng.uniform(0.5, 1.5, out).astype(np.float32)}
+            params[f"BasicBlock_{g}"] = block
+            stats[f"BasicBlock_{g}"] = block_stats
+            in_ch = out
+            g += 1
+    return {"params": {"backbone": {"trunk": params}},
+            "batch_stats": {"backbone": {"trunk": stats}}}
+
+
+@pytest.mark.cuda
+def test_stride1_stage_of_equal_width_loads_on_cuda(cuda):
+    # the second stage neither strides nor widens, so none of its blocks
+    # has a downsample conv: from_jax_params takes its start from
+    # layer_nums
+    from coalign_tpu_torch.models.layers import ResNetTrunk
+    from coalign_tpu_torch.runtime import configure_cuda
+    from coalign_tpu_torch.utils.weights import from_jax_params
+    configure_cuda()                         # full float32 convolutions
+    layer_nums, strides, filters = [1, 2], [2, 1], [16, 16]
+    sd = from_jax_params(_trunk_tree(layer_nums, strides, filters, 8, 0),
+                         layer_nums)
+    prefix = "backbone.resnet."
+    assert f"{prefix}layer1.1.conv2.weight" in sd
+    trunks = {}
+    for dev in ("cpu", cuda):
+        trunk = ResNetTrunk(layer_nums, strides, filters, 8)
+        trunk.load_state_dict({k[len(prefix):]: v for k, v in sd.items()},
+                              strict=True)
+        trunks[str(dev)] = trunk.to(dev).eval()
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (2, 8, 32, 32)).astype(np.float32))
+    with torch.no_grad():
+        want = trunks["cpu"](x)
+        got = trunks["cuda"](x.to(cuda))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)

@@ -224,7 +224,8 @@ def test_b2_inference_matches_jax_frame_by_frame(jax_numpy_batcher):
             jmodel, jax.random.PRNGKey(5), jbatch, train=False)),
         np.random.default_rng(6))
     model = build_model(flagship, device="cpu")
-    model.load_state_dict(from_jax_params(variables), strict=True)
+    model.load_state_dict(from_jax_params(
+        variables, TINY_ARGS["base_bev_backbone"]["layer_nums"]), strict=True)
     cfg = {"target_args": {"score_threshold": 0.3}, "nms_thresh": 0.15,
            "gt_range": TINY_ARGS["lidar_range"],
            "dir_args": TINY_ARGS["dir_args"], "max_num": 100}

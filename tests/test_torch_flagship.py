@@ -84,7 +84,8 @@ def test_jax_weights_give_the_same_maps_and_boxes():
         np.random.default_rng(0))
 
     model = build_model(FLAGSHIP, device="cpu")
-    model.load_state_dict(from_jax_params(variables), strict=True)
+    model.load_state_dict(from_jax_params(
+        variables, TINY_ARGS["base_bev_backbone"]["layer_nums"]), strict=True)
     cfg = {"target_args": {"score_threshold": 0.3}, "nms_thresh": 0.15,
            "gt_range": TINY_ARGS["lidar_range"],
            "dir_args": TINY_ARGS["dir_args"], "max_num": 100}

@@ -14,6 +14,8 @@ import torch
 from coalign_tpu_torch import runtime
 from coalign_tpu_torch.inference import make_infer_fn
 from coalign_tpu_torch.models.zoo import build_model
+from coalign_tpu_torch.posegraph import align_poses_batch
+from coalign_tpu_torch.tools.stage1 import correct_batch_poses, make_stage1_fn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "coalign_tpu_torch")
@@ -77,6 +79,19 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_infer_fn(torch.nn.Identity(), [], {})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_stage1_fn(torch.nn.Identity(), [], {})
+    poses = torch.zeros(1, 2, 6)
+    dets = {"box_poses": torch.zeros(1, 2, 4, 3),
+            "box_mask": torch.zeros(1, 2, 4, dtype=torch.bool),
+            "uncertainty": torch.zeros(1, 2, 4, 3)}
+    mask = torch.ones(1, 2, dtype=torch.bool)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        align_poses_batch(*dets.values(), poses, mask)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        correct_batch_poses({"lidar_pose": poses, "agent_mask": mask}, dets)
+    assert align_poses_batch(*dets.values(), poses, mask,
+                             device="cpu").shape == (1, 2, 6)
     with pytest.raises(RuntimeError):
         runtime.resolve_device()
     assert runtime.resolve_device("cpu") == torch.device("cpu")

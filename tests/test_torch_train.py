@@ -81,6 +81,10 @@ def _flagship(pad_parity: bool) -> dict:
     return {"core_method": "point_pillar_baseline_multiscale", "args": args}
 
 
+def _layer_nums(model_cfg: dict) -> list:
+    return model_cfg["args"]["base_bev_backbone"]["layer_nums"]
+
+
 def _scenes(n=4):
     return SyntheticScenes(num_frames=n, num_agents=2, num_objects=4,
                            lidar_range=LIDAR_RANGE, agent_spread=4.0,
@@ -255,7 +259,8 @@ def _port_state(variables, path):
             tree = {key: tree}
         return tree
     sd = from_jax_params({"params": nest(variables["params"]),
-                          "batch_stats": nest(variables["batch_stats"])})
+                          "batch_stats": nest(variables["batch_stats"])},
+                         layer_nums=[1])
     prefix = ("backbone.resnet.layer0.0." if "trunk" in path
               else "backbone.deblocks.0.")
     return {k[len(prefix):]: v for k, v in sd.items()}
@@ -396,18 +401,19 @@ def jax_step(request):
     new, metrics = jax_make_train_step(jmodel, jax_build_loss(LOSS_ARGS),
                                        jspec, donate=False)(state, jbatch)
     new = jax.tree_util.tree_map(np.asarray, new)
+    layers = _layer_nums(flagship)
     return {"flagship": flagship, "batch": batch, "variables": variables,
             "metrics": {k: float(v) for k, v in metrics.items()},
-            "grads": from_jax_params({"params": new.opt_state}),
-            "params": from_jax_params({"params": new.params}),
-            # the stage split of from_jax_params reads the params' names
-            "stats": from_jax_params({"params": new.params,
-                                      "batch_stats": new.batch_stats})}
+            "grads": from_jax_params({"params": new.opt_state}, layers),
+            "params": from_jax_params({"params": new.params}, layers),
+            "stats": from_jax_params({"batch_stats": new.batch_stats},
+                                     layers)}
 
 
 def _float64_grads(flagship, variables, batch):
     model = build_model(flagship, device="cpu")
-    model.load_state_dict(from_jax_params(variables), strict=True)
+    model.load_state_dict(from_jax_params(variables, _layer_nums(flagship)),
+                          strict=True)
     model.double().train()
     b = {k: v.double() if v.is_floating_point() else v
          for k, v in _tensors(batch).items()}
@@ -422,8 +428,9 @@ def test_flagship_step_matches_jax(jax_step):
     assert not batch["agent_mask"].all()            # a padded agent slot
     assert not batch["point_mask"][batch["agent_mask"]].all()
     model = build_model(jax_step["flagship"], device="cpu")
-    model.load_state_dict(from_jax_params(jax_step["variables"]),
-                          strict=True)
+    model.load_state_dict(from_jax_params(
+        jax_step["variables"], _layer_nums(jax_step["flagship"])),
+        strict=True)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     opt = torch.optim.SGD(model.parameters(), lr=SGD_LR)
     step = make_train_step(model, build_loss(LOSS_ARGS),
@@ -467,7 +474,7 @@ def test_initialization_follows_flax_defaults():
     jbatch = {k: jnp.asarray(v) for k, v in _train_batch().items()}
     want = from_jax_params(jax.tree_util.tree_map(np.asarray, jit_init(
         jax_build_model(flagship), jax.random.PRNGKey(0), jbatch,
-        train=False)))
+        train=False)), _layer_nums(flagship))
     got = build_model(flagship, device="cpu", seed=0).state_dict()
     assert set(got) == set(want)
     for key, w in want.items():
