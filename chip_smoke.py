@@ -44,18 +44,41 @@ Phases, each printing one JSON line with its elapsed seconds:
              errors before and after;
      coalign_profile   torch.profiler over 5 requests, with the
              stage/stage1 and stage/pose_graph ranges beside the flagship's;
-Then one JSON line describing each kernel, timed at four shapes (the main
+ 11. late    late fusion of the recording's 5 agents (B=1) through
+             make_late_infer_fn with stage1's detector: CUDA against the
+             CPU (box sets) in the modes late and no, 2 IoU launches a
+             request (the agents' NMS at (5, 512), the joint NMS at
+             (1, 500), held against the plain version), 20 timed requests
+             and a profile each;
+ 12. early   early fusion of the same agents merged into one (1, 1, 30000,
+             4) cloud, pointpillar_early.yaml's point_pillar with the
+             flagship checkpoint's weights: CUDA against the CPU (head maps,
+             box set), one IoU launch, 20 timed requests and a profile;
+ 13. stage1_train   pointpillar_uncertainty.yaml's detector trained from
+             scratch at full width on late train batches (B=4, one agent a
+             frame) with the uncertainty loss; stage1_train_profile;
+             stage1_parity, the tiny stage-1 detector's step on CUDA against
+             the CPU (train_parity's bounds); stage1_ap,
+             tests/test_late_inference.py's gate (late AP30 > 0.05 and >= no
+             fusion's - 0.05) for the tiny stage-1 detector trained on the
+             card, then its detections correcting noisy poses (reported);
+     noise_sweep   tools/noise_sweep on the tiny flagship of train_ap at
+             pose noise 0 and 0.4, without and with that stage-1 correction
+             (reported).
+Then one JSON line describing each kernel, timed at five shapes (the main
 path's NMS input; that input stacked 8 times, a B=8 batch's one launch; 8
-frames of densely packed boxes; the stage-1 NMS input over 5 agent frames)
-beside its bound and the time of one launch that writes the same output
-(out.zero_()), the card's name and power limit, and as the last line
-{"ok": true, "device": {...}}. Any failed check raises,
-so the exit code is not 0. make_infer_fn runs float32 in full float32
-(TF32 off) and lets cuDNN autotune (runtime.configure_cuda).
+frames of densely packed boxes; the stage-1 NMS input over 5 agent frames;
+the late request's joint NMS input) beside its bound and the time of one
+launch that writes the same output (out.zero_()), the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}. Any failed check
+raises, so the exit code is not 0. make_infer_fn runs float32 in full
+float32 (TF32 off) and lets cuDNN autotune (runtime.configure_cuda).
 
 The goldens are read in place from tests/golden/; nothing of JAX or of the
-coalign_tpu package is imported. The CPU can rehearse train_ap and
-train_parity's steps: train_to_ap("cpu"), _one_sgd_step("cpu", ...).
+coalign_tpu package is imported. The CPU can rehearse train_ap, stage1_ap,
+the sweep and the parity phases' steps: train_to_ap("cpu"),
+stage1_to_ap("cpu"), sweep_check(model, stage1, "cpu"),
+_one_sgd_step("cpu", ...).
 """
 
 from __future__ import annotations
@@ -211,6 +234,64 @@ YAML_NOISE = {"pos_std": 0.2, "rot_std": 0.2}
 ORACLE_NOISE = {"pos_std": 0.4, "rot_std": 2.0}
 COALIGN_REQUESTS = 20
 
+# Late and early fusion and stage-1 training at full width: the point_pillar
+# of coalign_tpu/hypes_yaml/opv2v/pointpillar_{late,early}.yaml (the
+# flagship's encoder, ResNet [3,5,8] trunk, deblocks, shrink and heads,
+# without fusion or pad_parity) and pointpillar_uncertainty.yaml's
+# point_pillar_uncertainty (the same plus a log-variance head), with the
+# yamls' post-processing (100 boxes an agent before late fusion's joint
+# NMS) and the uncertainty yaml's loss, whose settings under ``kl`` neither
+# package reads (coalign_tpu_torch/loss/uncertainty_loss.py).
+EARLY_ARGS = {k: v for k, v in TRAIN_FULL_ARGS.items()
+              if k not in ("fusion_method", "att")}
+STAGE1_TRAIN_ARGS = {**EARLY_ARGS, "uncertainty_dim": 3}
+LATE_POSTPROCESS = {**STAGE1_POSTPROCESS, "max_num": 100}
+YAML_UNC_LOSS = {"core_method": "point_pillar_uncertainty_loss",
+                 "args": {**YAML_LOSS, "kl": {"weight": 0.5,
+                                              "xy_loss_type": "l2",
+                                              "angle_weight": 1.0}}}
+LATE_REQUESTS = 20
+
+# The tiny late-fusion training of tests/test_late_inference.py (ARGS, its
+# anchors, POST, its loss, scenes and batcher), which imports JAX, with an
+# uncertainty head and the uncertainty loss: stage1_ap trains CoAlign's
+# stage-1 detector as that test trains its single-agent model and holds it
+# to that test's gate. Its noisy frames for the pose graph are 20 more
+# scenes of the same kind. stage1_parity steps the E2E-sized stage-1
+# detector on a late train batch on both devices.
+LATE_RANGE = [-12.8, -12.8, -3.0, 12.8, 12.8, 1.0]
+LATE_TINY_ARGS = {
+    "voxel_size": [0.4, 0.4, 4.0], "lidar_range": LATE_RANGE,
+    "anchor_number": 2,
+    "pillar_vfe": {"use_norm": True, "with_distance": False,
+                   "use_absolute_xyz": True, "num_filters": [32]},
+    "point_pillar_scatter": {"num_features": 32},
+    "base_bev_backbone": {"layer_nums": [2, 2], "layer_strides": [2, 2],
+                          "num_filters": [32, 64],
+                          "upsample_strides": [1, 2],
+                          "num_upsample_filter": [64, 64], "resnet": False},
+    "shrink_header": {"kernal_size": [3], "stride": [1], "padding": [1],
+                      "dim": [64], "input_dim": 128},
+}
+LATE_TINY_ANCHORS = {"W": 64, "H": 64, "l": 3.9, "w": 1.6, "h": 1.56,
+                     "r": [0, 90], "vw": 0.4, "vh": 0.4, "feature_stride": 2,
+                     "cav_lidar_range": LATE_RANGE}
+LATE_TINY_TARGETS = {"pos_threshold": 0.3, "neg_threshold": 0.2}
+LATE_TINY_POST = {"target_args": {"score_threshold": 0.1},
+                  "nms_thresh": 0.15, "gt_range": LATE_RANGE}
+LATE_TINY_LOSS = {"pos_cls_weight": 2.0,
+                  "cls": {"alpha": 0.25, "gamma": 2.0, "weight": 2.0},
+                  "reg": {"sigma": 3.0, "weight": 2.0}}
+LATE_TINY_SCENES = dict(num_frames=4, num_agents=3, num_objects=4,
+                        lidar_range=LATE_RANGE, points_per_object=48,
+                        ground_points=96, seed=9)
+LATE_TINY_BATCHER = dict(max_cav=3, max_points=1024, max_objects=8,
+                         lidar_range=LATE_RANGE)
+E2E_STAGE1_ARGS = {**{k: v for k, v in E2E_ARGS.items()
+                      if k not in ("fusion_method", "att")},
+                   "uncertainty_dim": 3}
+SWEEP_LEVELS = ((0.0, 0.0), (0.4, 0.4))
+
 # published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, HBM3 bandwidth
 PEAK_F32_OPS = 67e12
@@ -347,6 +428,17 @@ def check_degenerate(got: torch.Tensor, want: torch.Tensor) -> dict:
             "plain_point_nonzero": plain_point_nonzero}
 
 
+def counted_call(fn, *args):
+    """(fn(*args), the rotated-IoU kernel's launches in that call): the
+    count is set to 0 just before and read just after."""
+    from coalign_tpu_torch.kernels import rotated_iou as K
+    torch.cuda.synchronize()
+    K.rotated_iou.launches = 0
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, K.rotated_iou.launches
+
+
 def event_ms(fn, reps: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -384,12 +476,18 @@ def iou_ops(c1: torch.Tensor, c2: torch.Tensor) -> float:
     """The f32 operations that the rotated-IoU function needs on these boxes
     (a multiply-add counts 2, a divide, square root or comparison 1), each
     value computed once, whatever a kernel spends:
-      per box  57: its 4 edge vectors (8) and its shoelace area (16); for
-                the separation test its centre (8) and its reach, the
-                largest centre-to-corner distance plus half the margin (25).
-                The kernel's guard against degenerate boxes (the shortest
-                edge, square corners) belongs to its cull's design, not to
-                the function, and is not charged;
+      per box  58: its 4 edge vectors (8), its shoelace area (16) and the
+                test of that area against 0 (1); for the separation test
+                its centre (8) and its reach, the largest centre-to-corner
+                distance plus half the margin (25). The kernel's guard
+                against degenerate boxes (the shortest edge, square corners)
+                belongs to its cull's design, not to the function, and is
+                not charged;
+      per pair with a box of zero area 1: the OR of the two boxes' tests;
+                the intersection lies inside that box, so the IoU is 0
+                without more work (a kernel that computes such a pair in
+                full, as this one does, spends more than the function
+                needs);
       per cleared pair 8: the separation test (the centre difference 2, its
                 squared length 3, the reaches' sum and its square 2, the
                 comparison 1); such a pair's IoU is 0 without more work;
@@ -405,11 +503,12 @@ def iou_ops(c1: torch.Tensor, c2: torch.Tensor) -> float:
                 centroid (2c), the pseudo-angle keys (7c), the shoelace sum
                 (4c), and the sort's comparisons, log2(c!) being the fewest
                 any comparison sort needs on average.
-    The cleared pairs come from separated_pairs, c and the valid crossings
-    from the plain version's own tests in its frame, on these boxes."""
+    The zero areas come from polygon_area in float32, the cleared pairs
+    from separated_pairs, c and the valid crossings from the plain
+    version's own tests in its frame, on these boxes."""
     from coalign_tpu_torch.utils.iou import (_points_in_quad,
                                              _segment_intersections,
-                                             separated_pairs)
+                                             polygon_area, separated_pairs)
     n, m = c1.shape[-3], c2.shape[-3]
     origin = c1[..., :, None, 0:1, :]
     q1 = (c1[..., :, None, :, :] - origin).expand(c1.shape[:-3] + (n, m, 4, 2))
@@ -419,21 +518,26 @@ def iou_ops(c1: torch.Tensor, c2: torch.Tensor) -> float:
            + xing).double()
     sort = torch.lgamma(cnt + 1) / np.log(2.0)
     survivor = 356 + 4 * xing + torch.where(cnt >= 3, 13 * cnt + sort, 0.0)
-    per_pair = torch.where(separated_pairs(c1, c2), 8.0, survivor)
+    flat = ((polygon_area(c1.float()) == 0)[..., :, None]
+            | (polygon_area(c2.float()) == 0)[..., None, :])
+    per_pair = torch.where(flat, 1.0, torch.where(separated_pairs(c1, c2),
+                                                  8.0, survivor))
     boxes = c1.shape[:-3].numel() * (n + m)
-    return float(per_pair.sum()) + 57 * boxes
+    return float(per_pair.sum()) + 58 * boxes
 
 
-def time_shape(c: torch.Tensor) -> dict:
+def time_shape(c: torch.Tensor, pairs: torch.Tensor | None = None) -> dict:
     """The kernel on ``c`` against itself: its device time, its bound, the
     share of pairs its cull clears, the device time of one launch that
     writes the same output (``out.zero_()``), its difference from the plain
-    version and the plain version's device time."""
+    version (over ``pairs``, a (B, N, N) mask, when given) and the plain
+    version's device time."""
     from coalign_tpu_torch.kernels import rotated_iou as K
     from coalign_tpu_torch.utils.iou import rotated_iou_plain, separated_pairs
     got = K.rotated_iou(c, c)
     want = rotated_iou_plain(c, c)
-    err = (got - want).abs().max().item()
+    diff = (got - want).abs()
+    err = (diff if pairs is None else diff[pairs]).max().item()
     check(err <= 1e-4, f"kernel vs plain on {list(c.shape)}: {err:.2e}")
     ops = iou_ops(c, c)
     ops_ms = ops / PEAK_F32_OPS * 1e3
@@ -570,7 +674,6 @@ def train_full(card: str) -> tuple:
     from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
     from coalign_tpu_torch.data.prefetch import prefetch
     from coalign_tpu_torch.data.synthetic import SyntheticScenes
-    from coalign_tpu_torch.kernels import rotated_iou as K
     from coalign_tpu_torch.loss import build_loss
     from coalign_tpu_torch.models.zoo import build_model
     from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
@@ -590,17 +693,18 @@ def train_full(card: str) -> tuple:
     running = {k: v.clone() for k, v in model.state_dict().items()
                if k.endswith(("running_mean", "running_var"))}
 
+    def run():
+        terms = [step(batch) for _ in range(3)]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            terms.append(step(batch))
+        end.record()
+        return terms, start, end
+
     torch.cuda.reset_peak_memory_stats()
-    K.rotated_iou.launches = 0
-    terms = [step(batch) for _ in range(3)]
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(10):
-        terms.append(step(batch))
-    end.record()
-    torch.cuda.synchronize()
-    train_launches = K.rotated_iou.launches
+    (terms, start, end), train_launches = counted_call(run)
     ms = start.elapsed_time(end) / 10
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     first = {k: float(v) for k, v in terms[0].items()}
@@ -636,7 +740,6 @@ def train_eval(model, loss, spec, batcher, scenes, batch) -> dict:
     (a model 13 steps from scratch may decode inf sizes in boxes that the
     score threshold drops)."""
     from coalign_tpu_torch.inference import make_infer_fn
-    from coalign_tpu_torch.kernels import rotated_iou as K
     from coalign_tpu_torch.train import validate
     val_loss = validate(model, loss, spec, batcher, scenes, TRAIN_BATCH)
     check(np.isfinite(val_loss), "validation loss is not finite")
@@ -644,10 +747,7 @@ def train_eval(model, loss, spec, batcher, scenes, batch) -> dict:
         "target_args": YAML_TARGETS, "nms_thresh": 0.15,
         "gt_range": FULL_ARGS["lidar_range"],
         "dir_args": FULL_ARGS["dir_args"], "max_num": 100})
-    K.rotated_iou.launches = 0
-    dets = infer(batch)
-    torch.cuda.synchronize()
-    launches = K.rotated_iou.launches
+    dets, launches = counted_call(infer, batch)
     check(launches >= 1, "the eval batch launched no rotated_iou")
     check(tuple(dets["corners3d"].shape) == (TRAIN_BATCH, 100, 8, 3),
           f"eval boxes of shape {tuple(dets['corners3d'].shape)}")
@@ -669,18 +769,33 @@ def _tiny_parity_batch() -> dict:
         lidar_range=E2E_RANGE).assemble([scenes[0], scenes[1]])
 
 
-def _one_sgd_step(device: str, dtype: torch.dtype, batch: dict):
-    """One make_train_step of the tiny flagship (seed 0) with SGD (lr
-    1e-2) on ``device`` in ``dtype``: (loss terms, gradients, state dict
-    after the step), on the CPU in float64."""
+E2E_FLAGSHIP = {"core_method": "point_pillar_baseline_multiscale",
+                "args": E2E_ARGS}
+
+
+def _tiny_stage1_batch() -> dict:
+    """stage1_parity's batch: a late train batch (one agent a frame, L = 1)
+    of the two frames of _tiny_parity_batch."""
+    from coalign_tpu_torch.data.batch import LateFusionBatcher
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    scenes = SyntheticScenes(**E2E_SCENES)
+    return LateFusionBatcher(
+        max_cav=3, max_points=2500, max_objects=16,
+        lidar_range=E2E_RANGE).assemble_train([scenes[0], scenes[1]])
+
+
+def _one_sgd_step(device: str, dtype: torch.dtype, batch: dict,
+                  model_cfg: dict = E2E_FLAGSHIP, loss_cfg: dict = E2E_LOSS):
+    """One make_train_step of a tiny model (the flagship by default; seed
+    0) with SGD (lr 1e-2) on ``device`` in ``dtype``: (loss terms,
+    gradients, state dict after the step), on the CPU in float64."""
     from coalign_tpu_torch.loss import build_loss
     from coalign_tpu_torch.models.zoo import build_model
     from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
     from coalign_tpu_torch.train import make_train_step
-    model = build_model({"core_method": "point_pillar_baseline_multiscale",
-                         "args": E2E_ARGS}, device=device, seed=0).to(dtype)
+    model = build_model(model_cfg, device=device, seed=0).to(dtype)
     opt = torch.optim.SGD(model.parameters(), lr=1e-2)
-    terms = make_train_step(model, build_loss(E2E_LOSS), make_anchor_spec(
+    terms = make_train_step(model, build_loss(loss_cfg), make_anchor_spec(
         E2E_ANCHORS, E2E_POSTPROCESS["target_args"]), opt,
         device=device)(batch)
     return ({k: float(v) for k, v in terms.items()},
@@ -696,9 +811,11 @@ def _max_rel(got: dict, want: dict) -> list:
         1e-30)), k] for k, w in want.items())
 
 
-def train_parity() -> dict:
+def train_parity(batch: dict | None = None, model_cfg: dict = E2E_FLAGSHIP,
+                 loss_cfg: dict = E2E_LOSS) -> dict:
     """The CUDA step against the CPU step on the same seeded weights and
-    batch. In float32, the loss terms within 1e-4 relative and the running
+    batch (by default the tiny flagship on _tiny_parity_batch). In
+    float32, the loss terms within 1e-4 relative and the running
     statistics after the step within 1e-4 of each tensor's largest
     magnitude: summation orders and grid_sample's atomics differ. In
     float64, the loss terms, the gradients and the whole state after the
@@ -711,11 +828,13 @@ def train_parity() -> dict:
     sides, which moves that element's gradient by its whole value and
     every gradient upstream of it by up to ~1e-2
     (tests/test_torch_train.py)."""
-    batch = _tiny_parity_batch()
+    batch = _tiny_parity_batch() if batch is None else batch
     out = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-6)):
-        cpu_terms, cpu_grads, cpu_state = _one_sgd_step("cpu", dtype, batch)
-        terms, grads, state = _one_sgd_step("cuda", dtype, batch)
+        cpu_terms, cpu_grads, cpu_state = _one_sgd_step(
+            "cpu", dtype, batch, model_cfg, loss_cfg)
+        terms, grads, state = _one_sgd_step("cuda", dtype, batch, model_cfg,
+                                            loss_cfg)
         name = str(dtype).split(".")[-1]
         running = [k for k in cpu_state if "running_" in k]
         errs = {"loss_terms": max([abs(terms[k] - v) / abs(v), k]
@@ -729,15 +848,15 @@ def train_parity() -> dict:
         for key in held:
             check(errs[key][0] <= tol, f"{name} {key}: {errs[key]}")
         out[name] = {"bound": tol, "held": held, "rel_err": errs,
-                     "total_loss": terms["total_loss"]}
+                     "terms": terms}
     return out
 
 
 def train_to_ap(device=None) -> dict:
     """tests/test_end2end.py's gate on the port: the tiny flagship (seed 42)
     trained 250 Adam steps (lr 3e-3, eps 1e-10) on its two fixed frames,
-    then evaluated at B = 2 through make_infer_fn. Returns the losses and
-    the AP; the caller checks them."""
+    then evaluated at B = 2 through make_infer_fn. Returns the losses, the
+    trained model and the AP; the caller checks them."""
     from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
     from coalign_tpu_torch.data.synthetic import SyntheticScenes
     from coalign_tpu_torch.inference import evaluate, gt_corners, make_infer_fn
@@ -760,7 +879,7 @@ def train_to_ap(device=None) -> dict:
     infer = make_infer_fn(model, spec.anchors, E2E_POSTPROCESS,
                           device=device)
     result = evaluate(infer, [dict(batch, gt_corners=gt_corners(batch))])
-    return {"losses": losses, **result}
+    return {"losses": losses, "model": model, **result}
 
 
 def oracle_stage1(frames, batch, k: int = STAGE1_BOXES) -> dict:
@@ -805,6 +924,24 @@ def pose_diff(got, want) -> tuple:
     return float(d[..., :2].max()), float(dyaw.abs().max())
 
 
+def _capture_iou_inputs():
+    """Replace utils/nms.py's rotated_iou with a wrapper that keeps a copy
+    of each first argument; returns (the list, a function that restores
+    the kernel)."""
+    from coalign_tpu_torch.utils import nms as nms_module
+    captured, kernel_fn = [], nms_module.rotated_iou
+
+    def capture(c1, c2):
+        captured.append(c1.clone())
+        return kernel_fn(c1, c2)
+
+    nms_module.rotated_iou = capture
+
+    def restore():
+        nms_module.rotated_iou = kernel_fn
+    return captured, restore
+
+
 def stage1_model(device):
     """The stage-1 detector at full width (STAGE1_ARGS, seed 0) with every
     weight but its uncertainty head from the flagship checkpoint."""
@@ -828,10 +965,8 @@ def stage1_check(card) -> tuple:
     log-variances within 1e-3; one IoU-kernel launch, at (5, 512). Returns
     (the phase's fields, the CUDA stage-1 fn, the kernel's input)."""
     from coalign_tpu_torch.inference import to_device
-    from coalign_tpu_torch.kernels import rotated_iou as K
     from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
     from coalign_tpu_torch.tools.stage1 import make_stage1_fn
-    from coalign_tpu_torch.utils import nms as nms_module
     from coalign_tpu_torch.utils.box_utils import boxes_to_corners_3d
     batch, _ = fullscale_batch()
     anchors = generate_anchor_box(FULL_ANCHORS)
@@ -845,22 +980,12 @@ def stage1_check(card) -> tuple:
     for key, err in map_err.items():
         check(err < 2e-3, f"stage-1 {key}: CUDA vs CPU {err:.2e}")
 
-    captured = []
-    kernel_fn = nms_module.rotated_iou
-
-    def capture(c1, c2):
-        captured.append(c1.clone())
-        return kernel_fn(c1, c2)
-
-    nms_module.rotated_iou = capture
+    captured, restore = _capture_iou_inputs()
     try:
         fns["cuda"](batch)
     finally:
-        nms_module.rotated_iou = kernel_fn
-    K.rotated_iou.launches = 0
-    dets = fns["cuda"](batch)
-    torch.cuda.synchronize()
-    launches = K.rotated_iou.launches
+        restore()
+    dets, launches = counted_call(fns["cuda"], batch)
     check(launches == 1, f"{launches} IoU launches in one stage-1 call")
     check(tuple(captured[0].shape) == (5, 512, 4, 2),
           f"stage-1 NMS input {tuple(captured[0].shape)}")
@@ -977,7 +1102,6 @@ def coalign_check(card, stage1, infer) -> tuple:
 
     from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
     from coalign_tpu_torch.data.synthetic import SyntheticScenes
-    from coalign_tpu_torch.kernels import rotated_iou as K
     from coalign_tpu_torch.posegraph import BoxAlignConfig
     from coalign_tpu_torch.tools.pose_graph_eval import (relative_pose_errors,
                                                          summarize)
@@ -992,10 +1116,7 @@ def coalign_check(card, stage1, infer) -> tuple:
 
     request(frames[0])
     torch.cuda.synchronize()
-    K.rotated_iou.launches = 0
-    dets = request(frames[1])
-    torch.cuda.synchronize()
-    launches = K.rotated_iou.launches
+    dets, launches = counted_call(request, frames[1])
     check(launches == 2, f"{launches} IoU launches in one CoAlign request")
     check(tuple(dets["corners3d"].shape) == (1, 100, 8, 3),
           f"boxes of shape {tuple(dets['corners3d'].shape)}")
@@ -1041,6 +1162,302 @@ def coalign_check(card, stage1, infer) -> tuple:
             "card": card}, request, frames[0]
 
 
+def same_box_sets(got: dict, want: dict) -> tuple:
+    """match_box_sets on each frame's kept boxes of two detection dicts
+    (corners3d, scores, mask; tensors on any device). Returns (boxes per
+    frame, min matched IoU, max score difference)."""
+    got = {k: got[k].cpu().numpy() for k in ("corners3d", "scores", "mask")}
+    want = {k: want[k].cpu().numpy() for k in ("corners3d", "scores",
+                                               "mask")}
+    counts, worst_iou, worst_ds = [], 1.0, 0.0
+    for b in range(len(got["mask"])):
+        ours, ref = got["mask"][b], want["mask"][b]
+        iou, ds = match_box_sets(got["corners3d"][b][ours],
+                                 got["scores"][b][ours],
+                                 want["corners3d"][b][ref],
+                                 want["scores"][b][ref])
+        counts.append(int(ours.sum()))
+        worst_iou, worst_ds = min(worst_iou, iou), max(worst_ds, ds)
+    return counts, worst_iou, worst_ds
+
+
+def timed_requests(fn, batch) -> dict:
+    """LATE_REQUESTS requests of ``fn`` on ``batch`` with CUDA events, and
+    profile_calls' device ms, host ms, busy share and launches a request."""
+    ms = event_ms(lambda: fn(batch), reps=LATE_REQUESTS)
+    prof = profile_calls(lambda: fn(batch))
+    return {"requests": LATE_REQUESTS, "ms_per_frame": ms,
+            "frames_per_s": 1000.0 / ms,
+            "profile": {k: prof[k] for k in (
+                "stages", "call_wall_ms", "device_kernel_ms",
+                "device_busy_share", "device_kernel_launches",
+                "top_kernels")}}
+
+
+def late_check(card) -> tuple:
+    """The late phase: late fusion of the recording's 5 agents (B = 1),
+    with late_transforms' per-agent transforms from the recorded pairwise
+    ones, through make_late_infer_fn and stage1_model's detector (the
+    flagship checkpoint's weights; the seeded log-variance head is not
+    read). Checks, for the modes late and no: CUDA against the CPU, the
+    same box set at match_box_sets' bounds; 2 IoU launches a late request
+    (the agents' NMS at (5, 512), the joint NMS at (1, 500)). The joint
+    NMS's launch is held against rotated_iou_plain on its own input over
+    the pairs the NMS reads, those of two candidate boxes (a slot that
+    post_process dropped holds a zero box, a point, whose IoUs are
+    rounding noise in both versions; ROADMAP fault 4); its other pairs are
+    counted. Then 20 timed requests and a profile. Returns (the phase's
+    fields, the joint NMS's input, its candidate mask)."""
+    from coalign_tpu_torch.data.batch import late_transforms
+    from coalign_tpu_torch.inference import make_late_infer_fn
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.utils.iou import rotated_iou_plain
+    from coalign_tpu_torch.kernels import rotated_iou as K
+    batch, _ = fullscale_batch()
+    batch = late_transforms(batch)
+    anchors = generate_anchor_box(FULL_ANCHORS)
+    models = {dev: stage1_model(dev) for dev in ("cuda", "cpu")}
+    out = {"agents": int(batch["agent_mask"].sum()), "card": card}
+    for mode in ("late", "no"):
+        infer, ref = (make_late_infer_fn(models[dev], anchors,
+                                         LATE_POSTPROCESS, mode, device=dev)
+                      for dev in ("cuda", "cpu"))
+        infer(batch)                                  # cuDNN autotunes
+        captured, restore = _capture_iou_inputs()
+        try:
+            dets, launches = counted_call(infer, batch)
+        finally:
+            restore()
+        check(launches == 2, f"{launches} IoU launches in a {mode} request")
+        check([tuple(c.shape[:2]) for c in captured] == [(5, 512), (1, 500)],
+              f"{mode} NMS inputs {[tuple(c.shape) for c in captured]}")
+        counts, worst_iou, worst_ds = same_box_sets(dets, ref(batch))
+        check(counts[0] > 0, f"no box in the {mode} request")
+        out[mode] = {"boxes": counts[0], "min_matched_iou": worst_iou,
+                     "max_score_diff": worst_ds,
+                     "rotated_iou_launches": launches,
+                     "nms_shapes": [list(c.shape[:2]) for c in captured],
+                     **timed_requests(infer, batch)}
+        if mode == "late":
+            joint = captured[1]
+            valid = joint.abs().amax(dim=(-2, -1)) > 0
+            out["late"]["candidates"] = int(valid.sum())
+    pairs = valid[:, :, None] & valid[:, None, :]
+    got = K.rotated_iou(joint, joint)
+    want = rotated_iou_plain(joint, joint)
+    err = (got - want)[pairs].abs().max().item()
+    check(err <= 1e-4, f"joint NMS IoU, kernel vs plain: {err:.2e}")
+    out["joint_nms_iou"] = {
+        "shape": list(joint.shape), "max_abs_err": err,
+        "candidate_pairs": int(pairs.sum()),
+        "other_pairs_differing": int(((got - want).abs() > 1e-4).sum())}
+    return out, joint, valid
+
+
+def early_check(card) -> dict:
+    """The early phase: early fusion of the recording's 5 agents, merged
+    by data/batch.merge_agents into one (1, 1, 30000, 4) cloud in the ego
+    frame, detected by pointpillar_early.yaml's point_pillar through
+    make_infer_fn. Its weights are the flagship checkpoint's, which it
+    shares key for key (the att fusion has none): seeded weights gave no
+    box on the card, and parity on an empty box set proves nothing.
+    Checks: head maps on CUDA within 2e-3 of the CPU's (the full phase's
+    bound), the same box set at match_box_sets' bounds, one IoU launch a
+    request. Then 20 timed requests and a profile."""
+    from coalign_tpu_torch.data.batch import merge_agents
+    from coalign_tpu_torch.inference import make_infer_fn, to_device
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.utils.weights import load_pth
+    batch, _ = fullscale_batch()
+    batch = merge_agents(batch, FULL_ARGS["lidar_range"])
+    check(batch["points"].shape[:3] == (1, 1, 30000),
+          f"merged cloud {batch['points'].shape}")
+    anchors = generate_anchor_box(FULL_ANCHORS)
+    models = {dev: load_pth(build_model({"core_method": "point_pillar",
+                                         "args": EARLY_ARGS}, device=dev),
+                            os.path.join(GOLDEN, "fullscale_multiscale.pth"))
+              for dev in ("cuda", "cpu")}
+    infer, ref = (make_infer_fn(models[dev], anchors, LATE_POSTPROCESS,
+                                device=dev) for dev in ("cuda", "cpu"))
+    infer(batch)
+    dets, launches = counted_call(infer, batch)
+    check(launches == 1, f"{launches} IoU launches in an early request")
+    with torch.no_grad():
+        maps = {dev: m(to_device(batch, dev)) for dev, m in models.items()}
+    map_err = {k: (v.cpu() - maps["cpu"][k]).abs().max().item()
+               for k, v in maps["cuda"].items()}
+    for key, err in map_err.items():
+        check(err < 2e-3, f"early {key}: CUDA vs CPU {err:.2e}")
+    counts, worst_iou, worst_ds = same_box_sets(dets, ref(batch))
+    check(counts[0] > 0, "no box in the early request")
+    return {"points": int(batch["point_mask"].sum()),
+            "shipped_points": float(batch["shipped_points"][0]),
+            "map_max_abs_err": map_err, "boxes": counts[0],
+            "min_matched_iou": worst_iou, "max_score_diff": worst_ds,
+            "rotated_iou_launches": launches,
+            **timed_requests(infer, batch), "card": card}
+
+
+def stage1_train_full(card) -> tuple:
+    """The stage1_train phase: pointpillar_uncertainty.yaml's detector from
+    scratch (seed 0) at full width on LateFusionBatcher(train=True) batches
+    (one agent a frame in its own frame) of 8 synthetic frames at the train
+    phase's scale, B = 4: the yaml's loss (with the uncertainty term),
+    targets, AdamW and schedule; 3 warm-up and 10 timed steps alternating
+    between the two batches (CUDA events), peak memory. Checks: every loss
+    term finite, unc_loss among them; every parameter a finite gradient;
+    the total loss of step 13 below step 1's (the same batch); no IoU
+    launch. Returns (the phase's fields, the step, a batch)."""
+    from coalign_tpu_torch.data.batch import LateFusionBatcher
+    from coalign_tpu_torch.data.prefetch import prefetch
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    from coalign_tpu_torch.loss import build_loss
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
+    from coalign_tpu_torch.train import build_optimizer, make_train_step
+    scenes = SyntheticScenes(num_frames=2 * TRAIN_BATCH, **TRAIN_SCENES)
+    batcher = LateFusionBatcher(**TRAIN_BATCHER, train=True)
+    batches = list(prefetch(batcher.batches(scenes, TRAIN_BATCH,
+                                            shuffle=False)))
+    check(len(batches) == 2 and tuple(batches[0]["agent_mask"].shape)
+          == (TRAIN_BATCH, 1), "late train batches")
+    model = build_model({"core_method": "point_pillar_uncertainty",
+                         "args": STAGE1_TRAIN_ARGS}, seed=0)
+    opt, sched = build_optimizer(model.parameters(), YAML_OPTIMIZER,
+                                 YAML_SCHEDULER)
+    step = make_train_step(model, build_loss(YAML_UNC_LOSS), make_anchor_spec(
+        FULL_ANCHORS, YAML_TARGETS), opt, sched)
+    torch.cuda.reset_peak_memory_stats()
+    terms, warm = counted_call(lambda: [step(batches[i % 2])
+                                        for i in range(3)])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(3, 13):
+        terms.append(step(batches[i % 2]))
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 10
+    check(warm == 0, f"{warm} IoU launches in 3 stage-1 train steps")
+    first = {k: float(v) for k, v in terms[0].items()}
+    last = {k: float(v) for k, v in terms[12].items()}
+    check("unc_loss" in first, "no unc_loss term")
+    check(all(np.isfinite(float(v)) for t in terms for v in t.values()),
+          "a loss term is not finite")
+    for name, p in model.named_parameters():
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+              f"{name}: no finite gradient")
+    check(last["total_loss"] < first["total_loss"],
+          f"total loss {first['total_loss']:.4f} -> {last['total_loss']:.4f}")
+    return ({"batch": TRAIN_BATCH, "agents_per_frame": 1,
+             "valid_points": int(batches[0]["point_mask"].sum()),
+             "gt_boxes": int(batches[0]["gt_mask"].sum()),
+             "canvas": [200, 704], "timed_steps": 10, "ms_per_step": ms,
+             "frames_per_s": TRAIN_BATCH * 1000.0 / ms,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "first_step": first, "last_step": last,
+             "launches_per_train_step": warm / 3, "card": card},
+            step, batches[0])
+
+
+def stage1_to_ap(device=None) -> dict:
+    """tests/test_late_inference.py's training on the port, for CoAlign's
+    stage-1 detector: the tiny point_pillar_uncertainty (seed 0) trained 80
+    Adam steps (lr 3e-3) with the uncertainty loss on one late train batch
+    of the 4 scenes, then evaluated at B = 2 through make_fusion_infer_fn in
+    the modes late and no. Then its detections (make_stage1_fn, 24 boxes
+    an agent) correct the poses of 20 more scenes of 10 objects (4 boxes
+    are too few landmarks for the pose graph) with the yaml's pose noise
+    and box_align args: the relative pose errors before and after,
+    and the frames the pose graph leaves uncorrected. Returns the losses,
+    the APs, the pose errors and the stage-1 fn; the caller checks the
+    gate."""
+    from coalign_tpu_torch.data.batch import (IntermediateFusionBatcher,
+                                              LateFusionBatcher)
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    from coalign_tpu_torch.inference import (evaluate, gt_corners,
+                                             make_fusion_infer_fn)
+    from coalign_tpu_torch.loss import build_loss
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.posegraph import BoxAlignConfig
+    from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
+    from coalign_tpu_torch.tools.pose_graph_eval import (relative_pose_errors,
+                                                         summarize)
+    from coalign_tpu_torch.tools.stage1 import (correct_batch_poses,
+                                                make_stage1_fn)
+    from coalign_tpu_torch.train import build_optimizer, make_train_step
+    scenes = SyntheticScenes(**LATE_TINY_SCENES)
+    batcher = LateFusionBatcher(**LATE_TINY_BATCHER)
+    train_batch = batcher.assemble_train([scenes[i] for i in range(4)])
+    model = build_model({"core_method": "point_pillar_uncertainty",
+                         "args": {**LATE_TINY_ARGS, "uncertainty_dim": 3}},
+                        device=device, seed=0)
+    spec = make_anchor_spec(LATE_TINY_ANCHORS, LATE_TINY_TARGETS)
+    opt, _ = build_optimizer(model.parameters(), {"lr": 3e-3, "args": {}})
+    step = make_train_step(model, build_loss(
+        {"core_method": "point_pillar_uncertainty_loss",
+         "args": LATE_TINY_LOSS}), spec, opt, device=device)
+    losses = torch.stack([step(train_batch)["total_loss"]
+                          for _ in range(80)]).tolist()
+    frames = [dict(b, gt_corners=gt_corners(b)) for b in batcher.batches(
+        scenes, 2, shuffle=False, drop_last=False)]
+    ap = {mode: evaluate(make_fusion_infer_fn(
+        model, spec.anchors, LATE_TINY_POST, mode, device=device), frames)
+        for mode in ("late", "no")}
+
+    stage1 = make_stage1_fn(model, spec.anchors, LATE_TINY_POST,
+                            STAGE1_BOXES, device=device)
+    noisy = IntermediateFusionBatcher(**LATE_TINY_BATCHER, **YAML_NOISE)
+    cfg = BoxAlignConfig.from_yaml(YAML_BOX_ALIGN)
+    errs = {"before": ([], []), "after": ([], [])}
+    left, boxes = 0, []
+    pose_scenes = SyntheticScenes(**dict(LATE_TINY_SCENES, num_frames=20,
+                                         num_objects=10, seed=10))
+    for i in range(len(pose_scenes)):
+        batch = noisy.assemble([pose_scenes[i]])
+        dets = stage1(batch)
+        boxes.append(int(dets["box_mask"].sum()))
+        after = correct_batch_poses(batch, dets, cfg, device=device)[
+            "lidar_pose"].cpu().numpy()
+        left += int(np.array_equal(after, batch["lidar_pose"]))
+        for key, poses in (("before", batch["lidar_pose"]), ("after", after)):
+            t, r = relative_pose_errors(poses, batch["lidar_pose_clean"],
+                                        batch["agent_mask"])
+            errs[key][0].append(t)
+            errs[key][1].append(r)
+    return {"losses": losses, "ap": ap, "stage1": stage1,
+            "pose_frames": 20, "frames_left_uncorrected": left,
+            "stage1_boxes_per_frame": boxes,
+            "pose_error": {key: summarize(np.concatenate(t),
+                                          np.concatenate(r))
+                           for key, (t, r) in errs.items()}}
+
+
+def sweep_check(flagship, stage1, device=None) -> dict:
+    """The noise_sweep phase: tools/noise_sweep.noise_sweep of the tiny
+    flagship that train_ap trained (``flagship``) on the 4 frames of its
+    scenes at B = 2, at SWEEP_LEVELS, without and with the pose-graph
+    correction from ``stage1`` (stage1_ap's detector; the yaml's box_align
+    args). Reported, not gated."""
+    from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    from coalign_tpu_torch.posegraph import BoxAlignConfig
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.tools.noise_sweep import noise_sweep
+    out = {}
+    for name, fn in (("noisy", None), ("stage1_corrected", stage1)):
+        res = noise_sweep(
+            flagship, lambda p, r: IntermediateFusionBatcher(
+                **E2E_BATCHER, pos_std=p, rot_std=r),
+            SyntheticScenes(**E2E_SCENES), generate_anchor_box(E2E_ANCHORS),
+            E2E_POSTPROCESS, stage1=fn,
+            align_cfg=BoxAlignConfig.from_yaml(YAML_BOX_ALIGN),
+            levels=SWEEP_LEVELS, batch_size=2, device=device)
+        out[name] = {f"{p:g}_{r:g}": v for (p, r), v in res.items()}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -1049,7 +1466,6 @@ def main() -> int:
     from coalign_tpu_torch.kernels import rotated_iou as K
     from coalign_tpu_torch.models.zoo import build_model
     from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
-    from coalign_tpu_torch.utils import nms as nms_module
     from coalign_tpu_torch.utils.iou import rotated_iou_plain, separated_pairs
     from coalign_tpu_torch.utils.weights import load_pth
 
@@ -1110,23 +1526,13 @@ def main() -> int:
     infer = make_infer_fn(model, generate_anchor_box(FULL_ANCHORS), cfg)
 
     # the NMS input of this frame, kept to time the kernel on it below
-    captured = []
-    kernel_fn = nms_module.rotated_iou
-
-    def capture(c1, c2):
-        captured.append(c1.clone())
-        return kernel_fn(c1, c2)
-
-    nms_module.rotated_iou = capture
+    captured, restore = _capture_iou_inputs()
     try:
         infer(batch)
     finally:
-        nms_module.rotated_iou = kernel_fn
+        restore()
 
-    K.rotated_iou.launches = 0
-    dets = infer(batch)                       # the main path, counted
-    torch.cuda.synchronize()
-    launches = K.rotated_iou.launches
+    dets, launches = counted_call(infer, batch)   # the main path, counted
     check(launches >= 1, "the main path launched no rotated_iou kernel")
 
     with torch.no_grad():
@@ -1162,6 +1568,13 @@ def main() -> int:
     phase("coalign", **coalign)
     phase("coalign_profile", **profile_calls(lambda: request(frame)),
           card=card)
+    del stage1, request
+
+    # 11-12. late and early fusion at full width
+    late, late_nms_input, late_candidates = late_check(card)
+    phase("late", **late)
+    early = early_check(card)
+    phase("early", **early)
 
     # 6. AP of the tiny flagship on the 10 recorded frames
     io_ap = np.load(os.path.join(GOLDEN, "e2e_ap_io.npz"))
@@ -1199,10 +1612,7 @@ def main() -> int:
           card=card)
     del model, step, train_batch
     phase("train_parity", **train_parity())
-    K.rotated_iou.launches = 0
-    gate = train_to_ap()
-    torch.cuda.synchronize()
-    ap_launches = K.rotated_iou.launches
+    gate, ap_launches = counted_call(train_to_ap)
     losses = gate.pop("losses")
     check(losses[-1] < 0.05 * losses[0],
           f"loss did not drop: {losses[0]:.4f} -> {losses[-1]:.4f}")
@@ -1210,9 +1620,33 @@ def main() -> int:
     check(gate["ap30"] > 0.8 and gate["ap50"] > 0.6,
           f"AP too low after training: {gate}")
     check(ap_launches >= 1, "the AP evaluation launched no rotated_iou")
+    tiny_flagship = gate.pop("model")
     phase("train_ap", steps=250, first_loss=losses[0], last_loss=losses[-1],
           loss_every_50=losses[::50], **gate,
           rotated_iou_launches=ap_launches)
+
+    # 13. CoAlign's stage-1 training: full width, its profile, CUDA against
+    # the CPU, tests/test_late_inference.py's gate, then the noise sweep
+    stage1_train, step, train_batch = stage1_train_full(card)
+    phase("stage1_train", **stage1_train)
+    phase("stage1_train_profile",
+          **profile_calls(lambda: step(train_batch), 1), card=card)
+    del step, train_batch
+    phase("stage1_parity", **train_parity(
+        _tiny_stage1_batch(),
+        {"core_method": "point_pillar_uncertainty", "args": E2E_STAGE1_ARGS},
+        {"core_method": "point_pillar_uncertainty_loss", "args": E2E_LOSS}))
+    tiny = stage1_to_ap()
+    losses, late_ap, no_ap = tiny.pop("losses"), *tiny.pop("ap").values()
+    check(late_ap["frames"] == no_ap["frames"] == 4,
+          f"evaluated {late_ap['frames']} / {no_ap['frames']} frames")
+    check(late_ap["ap30"] > 0.05 and late_ap["ap30"] >= no_ap["ap30"] - 0.05,
+          f"stage-1 AP30: late {late_ap['ap30']:.4f}, no {no_ap['ap30']:.4f}")
+    stage1_tiny = tiny.pop("stage1")
+    phase("stage1_ap", steps=80, first_loss=losses[0], last_loss=losses[-1],
+          late=late_ap, no=no_ap, **tiny)
+    phase("noise_sweep", **sweep_check(tiny_flagship, stage1_tiny),
+          card=card)
 
     # the kernel on the main path's own input (one frame's 512 boxes), on
     # that input stacked 8 times (the NMS of a B=8 batch, one launch), on
@@ -1225,6 +1659,10 @@ def main() -> int:
                   [seeded_corners(c.shape[1], s) for s in range(8)])).to(dev),
               "stage1": stage1_nms_input}
     timed = {name: time_shape(x) for name, x in shapes.items()}
+    # the late request's joint NMS input, its error over the pairs of two
+    # candidate boxes (late_check)
+    timed["late"] = time_shape(late_nms_input, late_candidates[:, :, None]
+                               & late_candidates[:, None, :])
     # per call with CUDA events (host launch overhead included)
     kernel_call_ms = event_ms(lambda: K.rotated_iou(c, c), reps=200)
     plain_call_ms = event_ms(lambda: rotated_iou_plain(c, c), reps=20)
@@ -1242,6 +1680,10 @@ def main() -> int:
         "launches_per_eval_batch": train["launches_per_eval_batch"],
         "launches_per_coalign_request":
             coalign["rotated_iou_launches_per_request"],
+        "launches_per_late_request": late["late"]["rotated_iou_launches"],
+        "launches_per_early_request": early["rotated_iou_launches"],
+        "launches_per_stage1_train_step":
+            stage1_train["launches_per_train_step"],
         "max_abs_err": main["max_abs_err"],
         "max_abs_diff": main["max_abs_err"],
         "ms": main["kernel_ms"],

@@ -1,9 +1,11 @@
 """Batch assembly: frames -> padded fixed-shape host arrays.
 
-Port of coalign_tpu/data/batch.py ``IntermediateFusionBatcher`` (ref
+Port of coalign_tpu/data/batch.py's ``IntermediateFusionBatcher`` (ref
 opencood/data_utils/datasets/intermediate_fusion_dataset.py:236-575),
-numpy only. Agents are padded to ``L = max_cav`` with ``agent_mask``
-instead of the reference's flattened ``record_len``; voxelization happens
+``EarlyFusionBatcher`` and ``LateFusionBatcher`` (ref
+early_fusion_dataset.py, late_fusion_dataset.py), numpy only. Agents are
+padded to ``L = max_cav`` with ``agent_mask`` instead of the reference's
+flattened ``record_len``; voxelization happens
 on the device (models/pillar_encoder.py), so the host only masks and pads
 raw points, and labels are assigned on the device from the padded gt boxes
 (postprocess/anchors.assign_targets).
@@ -16,7 +18,10 @@ Batch contract:
   lidar_pose        (B, L, 6)          noisy; lidar_pose_clean (B, L, 6)
   gt_boxes          (B, M, 7) hwl      ego-frame gt (CLEAN poses)
   gt_mask           (B, M)   bool
-  transformation_matrix (B, 4, 4)      identity for intermediate fusion
+  transformation_matrix (B, 4, 4)      identity for intermediate fusion;
+                        (B, L, 4, 4) T_ego<-agent for late fusion
+Early fusion merges the agents into one: points (B, 1, L*N, 4), and
+shipped_points (B,), the non-ego points it sends.
 """
 
 from __future__ import annotations
@@ -31,12 +36,15 @@ from coalign_tpu_torch.utils.transforms import (get_pairwise_transformation,
 class IntermediateFusionBatcher:
     """Assemble intermediate-fusion batches from base frames. One
     ``default_rng(seed)`` draws, in order, the pose noise, the point
-    subsamples and the shuffles."""
+    subsamples and the shuffles. With ``train`` set, ``batches`` yields
+    ``assemble_train``'s batches where the batcher has one (late fusion
+    trains on one agent a frame)."""
 
     def __init__(self, max_cav=5, max_points=30000, max_objects=100,
                  lidar_range=(-140.8, -40, -3, 140.8, 40, 1),
                  comm_range=70.0, pos_std=0.0, rot_std=0.0, seed=303,
-                 augmentor=None, laplace=False):
+                 augmentor=None, train=False, laplace=False):
+        self.train = train
         self.max_cav = max_cav
         self.max_points = max_points
         self.max_objects = max_objects
@@ -117,7 +125,11 @@ class IntermediateFusionBatcher:
 
     def batches(self, dataset, batch_size, shuffle=True, drop_last=True):
         """Yield assembled batches of ``batch_size`` frames of ``dataset``,
-        in an order shuffled by the batcher's generator."""
+        in an order shuffled by the batcher's generator; in train mode
+        ``assemble_train``'s where the batcher has one."""
+        assemble = (self.assemble_train
+                    if self.train and hasattr(self, "assemble_train")
+                    else self.assemble)
         idx = np.arange(len(dataset))
         if shuffle:
             self.rng.shuffle(idx)
@@ -125,4 +137,90 @@ class IntermediateFusionBatcher:
             chunk = idx[start:start + batch_size]
             if drop_last and len(chunk) < batch_size:
                 return
-            yield self.assemble([dataset[i] for i in chunk])
+            yield assemble([dataset[i] for i in chunk])
+
+
+def merge_agents(batch: dict, lidar_range) -> dict:
+    """Early fusion of an intermediate batch: every agent's points projected
+    into the ego frame with the batch's (NOISY) transforms
+    ``pairwise_t_matrix[b, a, 0]`` = T_ego<-a, re-masked to the ego's
+    ``lidar_range`` and stacked into one virtual agent, points
+    (B, 1, L*N, 4); ``shipped_points`` (B,) counts the valid non-ego points
+    after projection, what crosses the channel (ref lidar_benchmark.md:9,
+    'Early' row). The other keys stay (poses cut to the ego's)."""
+    b, l, n, _ = batch["points"].shape
+    points = np.asarray(batch["points"]).reshape(b, l * n, 4).copy()
+    mask = np.asarray(batch["point_mask"]).reshape(b, l * n).copy()
+    ones = np.ones((n, 1), np.float32)
+    for bi in range(b):
+        for ai in range(1, l):
+            if not batch["agent_mask"][bi, ai]:
+                continue
+            t = batch["pairwise_t_matrix"][bi, ai, 0]
+            seg = slice(ai * n, (ai + 1) * n)
+            xyz1 = np.concatenate([points[bi, seg, :3], ones], -1)
+            points[bi, seg, :3] = (xyz1 @ t.T)[:, :3]
+    r = lidar_range
+    mask &= ((points[..., 0] >= r[0]) & (points[..., 0] < r[3])
+             & (points[..., 1] >= r[1]) & (points[..., 1] < r[4]))
+    out = dict(batch)
+    out.update(
+        shipped_points=mask.reshape(b, l, n)[:, 1:].sum((1, 2)).astype(
+            np.float32),
+        points=points[:, None], point_mask=mask[:, None],
+        agent_mask=np.ones((b, 1), dtype=bool),
+        pairwise_t_matrix=np.tile(np.eye(4, dtype=np.float32),
+                                  (b, 1, 1, 1, 1)))
+    for key in ("lidar_pose", "lidar_pose_clean"):
+        if key in batch:
+            out[key] = batch[key][:, :1]
+    return out
+
+
+def late_transforms(batch: dict) -> dict:
+    """Late fusion's test batch: the intermediate batch with a per-agent
+    ``transformation_matrix`` (B, L, 4, 4) = T_ego<-agent from the NOISY
+    poses, ``pairwise_t_matrix[:, :, 0]`` (pairwise[i, j] = T_j<-i), which
+    projects each agent's boxes into the ego frame before the joint NMS;
+    the identity for the ego and for padded slots."""
+    out = dict(batch)
+    out["transformation_matrix"] = np.asarray(
+        batch["pairwise_t_matrix"])[:, :, 0].astype(np.float32)
+    return out
+
+
+class EarlyFusionBatcher(IntermediateFusionBatcher):
+    """Early ("2-round") fusion: every agent's raw cloud, projected into the
+    ego frame with the noisy poses, becomes one virtual agent that a
+    single-agent model detects on (ref early_fusion_dataset.py:40-140); gt
+    comes from the clean poses as usual."""
+
+    def assemble(self, frames: list) -> dict:
+        return merge_agents(super().assemble(frames), self.lidar_range)
+
+
+class LateFusionBatcher(IntermediateFusionBatcher):
+    """Late fusion: each agent is a single-agent detection problem (ref
+    late_fusion_dataset.py).
+
+    ``assemble_train``: one random agent a frame in its own frame, with its
+    own-frame gt (ref :52-69); the batch has L = 1. ``assemble``: every
+    agent, with late_transforms' per-agent ``transformation_matrix`` (ref
+    :72-128); gt stays the ego frame's."""
+
+    def assemble_train(self, frames: list) -> dict:
+        # one draw a frame, before assemble draws noise and subsamples
+        picked = []
+        for frame in frames:
+            agents = frame["agents"]
+            ag = agents[int(self.rng.integers(0, len(agents)))]
+            picked.append({"agents": [ag], "objects": frame["objects"]})
+        out = super().assemble(picked)
+        for key in ("points", "point_mask", "agent_mask", "lidar_pose",
+                    "lidar_pose_clean"):
+            out[key] = out[key][:, :1]
+        out["pairwise_t_matrix"] = out["pairwise_t_matrix"][:, :1, :1]
+        return out
+
+    def assemble(self, frames: list) -> dict:
+        return late_transforms(super().assemble(frames))

@@ -1,9 +1,13 @@
 """Inference and evaluation: forward + post-processing, AP accumulation.
 
-Port of the anchor path of coalign_tpu/inference.py:37-116 (ref
-opencood/tools/inference.py, inference_utils.inference_intermediate_fusion).
-The forward and the whole post-processing run on the device; only the final
-fixed-size (max_keep) box tensors come back to the host for AP.
+Port of the anchor path of coalign_tpu/inference.py:37-185 (ref
+opencood/tools/inference.py, inference_utils.inference_intermediate_fusion,
+inference_late_fusion, inference_no_fusion): intermediate and early fusion
+decode the fused output (make_infer_fn); late and no fusion decode each
+agent's output and merge the agents by a joint NMS in the ego frame
+(make_late_infer_fn); make_fusion_infer_fn picks one by the yaml's fusion
+method. The forward and the whole post-processing run on the device; only
+the final fixed-size box tensors come back to the host for AP.
 """
 
 from __future__ import annotations
@@ -16,6 +20,13 @@ from coalign_tpu_torch.postprocess.decode import post_process
 from coalign_tpu_torch.runtime import configure_cuda, resolve_device
 from coalign_tpu_torch.utils import eval_utils as E
 from coalign_tpu_torch.utils.box_utils import boxes_to_corners_3d
+from coalign_tpu_torch.utils.nms import nms_rotated
+
+# fusion methods served by make_late_infer_fn, each with the mode it runs:
+# 'no_w_uncertainty' and 'single' give what 'no' gives (the detections carry
+# no uncertainty, as in the JAX package)
+LATE_MODES = {"late": "late", "no": "no", "no_w_uncertainty": "no",
+              "single": "no"}
 
 _BATCH_DTYPES = {"points": torch.float32, "point_mask": torch.bool,
                  "agent_mask": torch.bool,
@@ -42,18 +53,11 @@ def gt_corners(batch: dict) -> list:
             for b, m in zip(batch["gt_boxes"], batch["gt_mask"])]
 
 
-def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):
-    """(batch) -> detections of each frame.
-
-    ``batch`` is the JAX package's batch dict (numpy arrays or tensors):
-    points (B, L, N, 4), point_mask (B, L, N), agent_mask (B, L),
-    pairwise_t_matrix (B, L, L, 4, 4), transformation_matrix (B, 4, 4).
-    ``anchors`` is the (H, W, A, 7) anchor grid. Returns tensors on the
-    device: corners3d (B, max_num, 8, 3), boxes7 (B, max_num, 7),
-    scores (B, max_num), mask (B, max_num). On CUDA it sets the
-    process-wide full-float32 and cuDNN-autotuning policy
-    (runtime.configure_cuda).
-    """
+def infer_setup(model, anchors, postprocess_cfg: dict, device):
+    """The entry points' common set-up: the device (CUDA unless named, with
+    runtime.configure_cuda's policy there), the model on it in eval mode,
+    the anchors on it and post_process's keyword arguments, max_keep
+    aside."""
     dev = resolve_device(device)
     model.to(dev).eval()
     if dev.type == "cuda":
@@ -66,9 +70,25 @@ def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):
                               ["score_threshold"]),
         nms_threshold=float(postprocess_cfg["nms_thresh"]),
         gt_range=tuple(postprocess_cfg["gt_range"]),
-        max_keep=int(postprocess_cfg.get("max_num", 100)),
         dir_offset=float(dir_args.get("dir_offset", 0.7853)),
         num_bins=int(dir_args.get("num_bins", 2)))
+    return dev, anchors, kwargs
+
+
+def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):
+    """(batch) -> detections of each frame.
+
+    ``batch`` is the JAX package's batch dict (numpy arrays or tensors):
+    points (B, L, N, 4), point_mask (B, L, N), agent_mask (B, L),
+    pairwise_t_matrix (B, L, L, 4, 4), transformation_matrix (B, 4, 4).
+    ``anchors`` is the (H, W, A, 7) anchor grid. Returns tensors on the
+    device: corners3d (B, max_num, 8, 3), boxes7 (B, max_num, 7),
+    scores (B, max_num), mask (B, max_num). On CUDA it sets the
+    process-wide full-float32 and cuDNN-autotuning policy
+    (runtime.configure_cuda).
+    """
+    dev, anchors, kwargs = infer_setup(model, anchors, postprocess_cfg, device)
+    max_keep = int(postprocess_cfg.get("max_num", 100))
 
     @torch.no_grad()
     def infer(batch: dict) -> dict:
@@ -77,9 +97,84 @@ def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):
         with record_function("stage/post_process"):
             return post_process(out["cls_preds"], out["reg_preds"], anchors,
                                 b["transformation_matrix"],
-                                dir_preds=out.get("dir_preds"), **kwargs)
+                                dir_preds=out.get("dir_preds"),
+                                max_keep=max_keep, **kwargs)
 
     return infer
+
+
+def make_late_infer_fn(model, anchors, postprocess_cfg: dict,
+                       mode: str = "late", device=None):
+    """(batch) -> late- or no-fusion detections of each frame (port of
+    coalign_tpu/inference.py:118-185; ref inference_utils.py:17
+    inference_late_fusion, :97 inference_no_fusion).
+
+    ``model`` is a single-agent detector: it gives each of the B*L agent
+    frames its own maps. One post_process over all of them (one IoU launch)
+    keeps 100 boxes an agent, projected into the ego frame by the batch's
+    ``transformation_matrix``: (B, L, 4, 4) per agent
+    (data/batch.late_transforms), or (B, 4, 4), the same for every agent.
+    A box stays a candidate if post_process kept it and its agent is real;
+    in the mode 'no' only if it is the ego's. One joint NMS over the
+    (B, L*100) candidates (a second IoU launch) merges the agents.
+
+    Returns tensors on the device (CUDA unless named): corners3d
+    (B, L*100, 8, 3), scores (B, L*100) and mask (B, L*100), ranked by
+    score, zero where not kept."""
+    if mode not in ("late", "no"):
+        raise ValueError(f"unknown late inference mode {mode!r}")
+    dev, anchors, kwargs = infer_setup(model, anchors, postprocess_cfg, device)
+    ego_only = mode == "no"
+
+    @torch.no_grad()
+    def infer(batch: dict) -> dict:
+        b = to_device(batch, dev)
+        n_b, n_l = b["agent_mask"].shape
+        out = model(b)                                   # (B*L, ...) maps
+        with record_function("stage/post_process"):
+            tfm = b["transformation_matrix"]
+            if tfm.ndim == 3:
+                tfm = tfm[:, None].expand(n_b, n_l, 4, 4)
+            dets = post_process(out["cls_preds"], out["reg_preds"], anchors,
+                                tfm.reshape(n_b * n_l, 4, 4),
+                                dir_preds=out.get("dir_preds"), **kwargs)
+            # a padded agent's slots hold boxes of its empty canvas: they
+            # leave before the joint NMS, or they would suppress real ones
+            valid = dets["mask"] & b["agent_mask"].reshape(-1, 1)
+            if ego_only:
+                valid = valid & (torch.arange(n_b * n_l, device=dev)
+                                 % n_l == 0)[:, None]
+            k = n_l * valid.shape[1]
+            corners = dets["corners3d"].reshape(n_b, k, 8, 3)
+            scores = torch.where(valid, dets["scores"], 0.0).reshape(n_b, k)
+        with record_function("stage/joint_nms"):
+            order, keep = nms_rotated(corners[..., :4, :2], scores,
+                                      valid.reshape(n_b, k),
+                                      kwargs["nms_threshold"])
+            corners = torch.gather(corners, 1, order[..., None, None].expand(
+                -1, -1, 8, 3))
+            return {"corners3d": corners * keep[..., None, None],
+                    "scores": torch.where(keep, torch.gather(scores, 1, order),
+                                          0.0),
+                    "mask": keep}
+
+    return infer
+
+
+def make_fusion_infer_fn(model, anchors, postprocess_cfg: dict,
+                         fusion_method: str = "intermediate", device=None):
+    """The infer fn of the yaml's ``fusion.core_method`` (the dispatch of
+    coalign_tpu/inference.py:232-236): 'intermediate' and 'early' decode
+    the model's fused output (make_infer_fn; early fusion's batch holds one
+    merged agent, data/batch.EarlyFusionBatcher); 'late' merges per-agent
+    detections (make_late_infer_fn), and 'no', 'no_w_uncertainty' and
+    'single' keep the ego's (its mode 'no')."""
+    if fusion_method in LATE_MODES:
+        return make_late_infer_fn(model, anchors, postprocess_cfg,
+                                  LATE_MODES[fusion_method], device=device)
+    if fusion_method in ("intermediate", "early"):
+        return make_infer_fn(model, anchors, postprocess_cfg, device=device)
+    raise ValueError(f"unknown fusion method {fusion_method!r}")
 
 
 def evaluate(infer, frames, batch_hook=None) -> dict:

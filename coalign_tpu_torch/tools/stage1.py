@@ -20,10 +20,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from coalign_tpu_torch.inference import to_device
+from coalign_tpu_torch.inference import infer_setup, to_device
 from coalign_tpu_torch.posegraph import BoxAlignConfig, align_poses_batch
 from coalign_tpu_torch.postprocess.decode import post_process
-from coalign_tpu_torch.runtime import configure_cuda, resolve_device
+from coalign_tpu_torch.runtime import resolve_device
 from coalign_tpu_torch.utils.transforms import get_pairwise_transformation
 
 
@@ -46,21 +46,8 @@ def make_stage1_fn(model, anchors, postprocess_cfg: dict, max_boxes=24,
     Slots that post_process drops are zero; a padded agent's slots hold
     what the detector made of its empty canvas, with box_mask False, as in
     the JAX package."""
-    dev = resolve_device(device)
-    model.to(dev).eval()
-    if dev.type == "cuda":
-        configure_cuda()
-    anchors = torch.as_tensor(np.asarray(anchors), dtype=torch.float32,
-                              device=dev)
-    dir_args = postprocess_cfg.get("dir_args", {})
-    num_bins = int(dir_args.get("num_bins", 2))
-    kwargs = dict(
-        score_threshold=float(postprocess_cfg["target_args"]
-                              ["score_threshold"]),
-        nms_threshold=float(postprocess_cfg["nms_thresh"]),
-        gt_range=tuple(postprocess_cfg["gt_range"]), max_keep=max_boxes,
-        dir_offset=float(dir_args.get("dir_offset", 0.7853)),
-        num_bins=num_bins)
+    dev, anchors, kwargs = infer_setup(model, anchors, postprocess_cfg, device)
+    num_bins = kwargs["num_bins"]
 
     @torch.no_grad()
     def stage1(batch: dict) -> dict:
@@ -78,7 +65,8 @@ def make_stage1_fn(model, anchors, postprocess_cfg: dict, max_boxes=24,
             eye = torch.eye(4, device=dev).expand(cls.shape[0], 4, 4)
             det = post_process(cls, out["reg_preds"], anchors, eye,
                                dir_preds=dir_preds,
-                               unc_preds=out["unc_preds"], **kwargs)
+                               unc_preds=out["unc_preds"],
+                               max_keep=max_boxes, **kwargs)
             mask = det["mask"].reshape(n_b, n_l, -1)
             boxes = det["boxes7"].reshape(n_b, n_l, -1, 7)
             return {"box_poses": torch.cat([boxes[..., :2], boxes[..., 6:]],

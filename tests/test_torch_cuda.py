@@ -163,6 +163,51 @@ def test_stage1_on_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_late_and_early_requests_on_cuda_match_cpu(cuda):
+    # chip_smoke.py's late and early phases: the recording's 5 agents at
+    # full width, CUDA against the CPU (box sets at match_box_sets' bounds;
+    # early head maps within 2e-3), 2 IoU launches a late request (the
+    # joint NMS's held against the plain version), 1 an early one
+    from chip_smoke import early_check, late_check
+    late, joint, candidates = late_check("test")
+    assert late["late"]["rotated_iou_launches"] == 2
+    assert tuple(joint.shape) == (1, 500, 4, 2)
+    assert late["late"]["boxes"] >= late["no"]["boxes"] > 0
+    assert int(candidates.sum()) == late["late"]["candidates"]
+    assert early_check("test")["rotated_iou_launches"] == 1
+
+
+@pytest.mark.cuda
+def test_joint_nms_with_dropped_slots_on_cuda_matches_cpu(cuda):
+    # late fusion's joint NMS: slots post_process dropped hold zero boxes
+    # (points at the origin), invalid, whose IoUs are rounding noise; the
+    # kept boxes are the CPU's
+    rng = np.random.default_rng(6)
+    c = _corners((2, 300), 7)
+    valid = torch.from_numpy(rng.uniform(0, 1, (2, 300)) > 0.4)
+    c = torch.where(valid[..., None, None], c, 0.0)
+    scores = torch.where(valid, torch.from_numpy(
+        rng.uniform(0.2, 1, (2, 300)).astype(np.float32)), 0.0)
+    want = nms_rotated(c, scores, valid, 0.15)
+    got = nms_rotated(c.to(cuda), scores.to(cuda), valid.to(cuda), 0.15)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_stage1_step_on_cuda_matches_cpu(cuda):
+    # chip_smoke.py's stage1_parity: the tiny stage-1 detector's step with
+    # the uncertainty loss on a late train batch, train_parity's bounds
+    from chip_smoke import (E2E_LOSS, E2E_STAGE1_ARGS, _tiny_stage1_batch,
+                            train_parity)
+    out = train_parity(
+        _tiny_stage1_batch(),
+        {"core_method": "point_pillar_uncertainty", "args": E2E_STAGE1_ARGS},
+        {"core_method": "point_pillar_uncertainty_loss", "args": E2E_LOSS})
+    assert "unc_loss" in out["float64"]["terms"]
+
+
+@pytest.mark.cuda
 def test_pose_graph_on_cuda_matches_cpu_without_a_sync(cuda):
     from chip_smoke import ORACLE_NOISE, oracle_stage1, pose_diff
     from coalign_tpu_torch.data.batch import IntermediateFusionBatcher

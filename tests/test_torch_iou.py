@@ -119,16 +119,18 @@ def test_plain_keeps_precision_at_world_coordinates():
 
 
 @pytest.mark.parametrize("inner,want", [
-    # far apart: cleared by the separation test (8 a pair); per box 57
-    (np.array([[10.0, 10], [12, 10], [12, 11], [10, 11]]), 8 + 114),
+    # far apart: cleared by the separation test (8 a pair); per box 58
+    (np.array([[10.0, 10], [12, 10], [12, 11], [10, 11]]), 8 + 116),
     # nested: not cleared; per pair 356, the inner box's 4 corners are the
     # candidates, no crossing, 13c + log2(c!) for c = 4
     (np.array([[0.5, 0.5], [1.5, 0.5], [1.5, 1.5], [0.5, 1.5]]),
-     356 + 52 + np.log2(24) + 114),
-    # far apart but collapsed to a segment: degenerate, so never cleared;
-    # the full count, with no candidate
-    (np.array([[10.0, 10], [12, 10], [12, 10], [10, 10]]), 356 + 114),
-], ids=["far_cleared", "nested", "far_degenerate"])
+     356 + 52 + np.log2(24) + 116),
+    # far apart but collapsed to a segment: zero area, so the IoU is 0
+    # after one test (1 a pair), though the cull never clears it
+    (np.array([[10.0, 10], [12, 10], [12, 10], [10, 10]]), 1 + 116),
+    # a point inside the other box: zero area, 1 a pair
+    (np.array([[1.0, 1.0], [1, 1], [1, 1], [1, 1]]), 1 + 116),
+], ids=["far_cleared", "nested", "far_degenerate", "inside_point"])
 def test_iou_op_count(inner, want):
     # the operation count behind the kernel's bound in chip_smoke.py
     from chip_smoke import iou_ops

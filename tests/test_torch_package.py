@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from coalign_tpu_torch import runtime
-from coalign_tpu_torch.inference import make_infer_fn
+from coalign_tpu_torch.inference import (make_fusion_infer_fn, make_infer_fn,
+                                         make_late_infer_fn)
 from coalign_tpu_torch.models.zoo import build_model
 from coalign_tpu_torch.posegraph import align_poses_batch
+from coalign_tpu_torch.tools.noise_sweep import noise_sweep
 from coalign_tpu_torch.tools.stage1 import correct_batch_poses, make_stage1_fn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -81,6 +83,15 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         make_infer_fn(torch.nn.Identity(), [], {})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_stage1_fn(torch.nn.Identity(), [], {})
+    for mode in ("late", "no"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_late_infer_fn(torch.nn.Identity(), [], {}, mode)
+    for fusion in ("intermediate", "early", "late", "no", "no_w_uncertainty",
+                   "single"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_fusion_infer_fn(torch.nn.Identity(), [], {}, fusion)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        noise_sweep(torch.nn.Identity(), None, [], [], {})
     poses = torch.zeros(1, 2, 6)
     dets = {"box_poses": torch.zeros(1, 2, 4, 3),
             "box_mask": torch.zeros(1, 2, 4, dtype=torch.bool),
