@@ -65,6 +65,19 @@ Phases, each printing one JSON line with its elapsed seconds:
      noise_sweep   tools/noise_sweep on the tiny flagship of train_ap at
              pose noise 0 and 0.4, without and with that stage-1 correction
              (reported).
+ 14. baselines   one line for each of the seven intermediate-fusion
+             baselines of BASELINES (the OPV2V yamls pointpillar_fcooper,
+             _selfatt, _selfatt_singlescale, _disconet, _v2vnet, _when2comm
+             and _v2xvit) at full width on the recording's 5 agents,
+             through make_infer_fn: every weight the model shares by key
+             with fullscale_multiscale.pth from it, the learned fusion
+             seeded; CUDA against the CPU (head maps within 2e-3, the same
+             box set at match_box_sets' bounds, at the yaml's score
+             threshold lowered until 10 boxes remain, the threshold
+             printed), 1 IoU launch a request, peak memory, 20 timed
+             requests and a profile;
+     baseline_recordings   DiscoNet's and V2VNet's reference checkpoints
+             on CUDA against their recordings (2e-4).
 Then one JSON line describing each kernel, timed at five shapes (the main
 path's NMS input; that input stacked 8 times, a B=8 batch's one launch; 8
 frames of densely packed boxes; the stage-1 NMS input over 5 agent frames;
@@ -291,6 +304,33 @@ E2E_STAGE1_ARGS = {**{k: v for k, v in E2E_ARGS.items()
                       if k not in ("fusion_method", "att")},
                    "uncertainty_dim": 3}
 SWEEP_LEVELS = ((0.0, 0.0), (0.4, 0.4))
+
+# The intermediate-fusion baselines at full width: the models and the
+# post-processing of seven coalign_tpu/hypes_yaml/opv2v/<name>.yaml, read
+# from those files (the flagship's encoder, ResNet [3,5,8] trunk, deblocks,
+# shrink and heads, plus each yaml's fusion). Every weight a model shares by
+# key with fullscale_multiscale.pth comes from it; the learned fusion_net is
+# seeded.
+BASELINES = ("pointpillar_fcooper", "pointpillar_selfatt",
+             "pointpillar_selfatt_singlescale", "pointpillar_disconet",
+             "pointpillar_v2vnet", "pointpillar_when2comm",
+             "pointpillar_v2xvit")
+BASELINE_MIN_BOXES = 10
+# tests/test_ckpt_import.py:140-308's recorded baselines that the card
+# holds to their recordings (their checkpoints are 1.2 and 2.7 MB; the
+# 25 MB when2comm and v2xvit ones stay on the CPU): TINY_ARGS on the plain
+# backbone with each fusion's args
+RECORDED_ARGS = {**{k: v for k, v in TINY_ARGS.items()
+                    if k not in ("fusion_method", "att")},
+                 "base_bev_backbone": {**TINY_ARGS["base_bev_backbone"],
+                                       "resnet": False}}
+RECORDED_BASELINES = {
+    "disconet": {"fusion_method": "disconet", "disconet": {"feat_dim": 64}},
+    "v2vnet": {"fusion_method": "v2vnet", "v2vnet": {
+        "in_channels": 64, "num_iteration": 2, "gru_flag": True,
+        "agg_operator": "avg", "conv_gru": {
+            "H": 32, "W": 32, "kernel_size": [[3, 3]], "num_layers": 1}}},
+}
 
 # published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, HBM3 bandwidth
@@ -1299,6 +1339,145 @@ def early_check(card) -> dict:
             **timed_requests(infer, batch), "card": card}
 
 
+def baseline_yaml(name: str) -> tuple:
+    """The model config and the post-processing args of the OPV2V yaml
+    ``name`` (one of BASELINES)."""
+    from coalign_tpu_torch.config.yaml_utils import load_yaml
+    y = load_yaml(os.path.join(ROOT, "coalign_tpu", "hypes_yaml", "opv2v",
+                               f"{name}.yaml"))
+    post = {k: y["postprocess"][k] for k in ("target_args", "nms_thresh",
+                                             "gt_range", "dir_args",
+                                             "max_num")}
+    return y["model"], post
+
+
+def baseline_model(name: str, device, state_dict: dict):
+    """The model of the yaml ``name`` at full width on ``device`` (seed 0),
+    every weight it shares by key with fullscale_multiscale.pth
+    (``state_dict``) from that checkpoint: all of them for the max and att
+    fusions, all but the learned fusion_net's for the others. Returns (the
+    model, the number of seeded fusion_net tensors)."""
+    from coalign_tpu_torch.models.zoo import build_model
+    model = build_model(baseline_yaml(name)[0], device=device, seed=0)
+    missing, unexpected = model.load_state_dict(state_dict, strict=False)
+    check(not unexpected and all(k.startswith("fusion_net.")
+                                 for k in missing),
+          f"{name} checkpoint keys: missing {missing[:4]}, unexpected "
+          f"{unexpected[:4]}")
+    return model, len(missing)
+
+
+def baseline_parity(name: str, state_dict: dict) -> tuple:
+    """The yaml ``name``'s model on the recording's 5 agents, CUDA against the CPU
+    (a full-width forward takes 2-17 s there on an H100 host's 8 cores):
+    head maps within 2e-3 (the full phase's bound); the same box set at
+    match_box_sets' bounds (IoU > 0.95, scores within 1e-3) through
+    make_infer_fn at the yaml's score threshold, lowered until
+    BASELINE_MIN_BOXES boxes remain on the CPU (parity on an empty set
+    proves nothing). Returns (the fields, the CUDA infer fn at that
+    threshold, the batch)."""
+    from coalign_tpu_torch.inference import (infer_setup, make_infer_fn,
+                                             to_device)
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.postprocess.decode import post_process
+    from coalign_tpu_torch.runtime import configure_cuda
+    configure_cuda()
+    model_cfg, post = baseline_yaml(name)
+    batch, _ = fullscale_batch()
+    anchors = generate_anchor_box(FULL_ANCHORS)
+    built = {dev: baseline_model(name, dev, state_dict)
+             for dev in ("cuda", "cpu")}
+    models = {dev: model for dev, (model, _) in built.items()}
+    with torch.no_grad():
+        t = time.perf_counter()
+        cpu_maps = models["cpu"](to_device(batch, "cpu"))
+        cpu_s = time.perf_counter() - t
+        cuda_maps = models["cuda"](to_device(batch, "cuda"))
+    map_err = {k: (cuda_maps[k].cpu() - v).abs().max().item()
+               for k, v in cpu_maps.items()}
+    for key, err in map_err.items():
+        check(err < 2e-3, f"{name} {key}: CUDA vs CPU {err:.2e}")
+
+    # the CPU's boxes: make_infer_fn's post-processing on the CPU maps
+    _, cpu_anchors, kwargs = infer_setup(models["cpu"], anchors,
+                                         post, "cpu")
+    tfm = torch.from_numpy(batch["transformation_matrix"])
+    for threshold in (kwargs["score_threshold"], 0.1, 0.05, 0.02, 0.01):
+        kwargs["score_threshold"] = threshold
+        ref = post_process(cpu_maps["cls_preds"], cpu_maps["reg_preds"],
+                           cpu_anchors, tfm,
+                           dir_preds=cpu_maps.get("dir_preds"),
+                           max_keep=post["max_num"], **kwargs)
+        if int(ref["mask"].sum()) >= BASELINE_MIN_BOXES:
+            break
+    check(int(ref["mask"].sum()) >= BASELINE_MIN_BOXES,
+          f"{name}: {int(ref['mask'].sum())} boxes at score 0.01")
+    cfg = {**post, "target_args": {
+        **post["target_args"], "score_threshold": threshold}}
+    infer = make_infer_fn(models["cuda"], anchors, cfg)
+    counts, worst_iou, worst_ds = same_box_sets(infer(batch), ref)
+    return ({"core_method": model_cfg["core_method"],
+             "fusion": model_cfg["args"]["fusion_method"],
+             "seeded_fusion_tensors": built["cpu"][1],
+             "cpu_forward_s": cpu_s,
+             "score_threshold": threshold,
+             "yaml_score_threshold":
+                 post["target_args"]["score_threshold"],
+             "map_max_abs_err": map_err, "boxes": counts[0],
+             "min_matched_iou": worst_iou, "max_score_diff": worst_ds},
+            infer, batch)
+
+
+def baselines_check(card) -> dict:
+    """The baselines phase, one line a yaml of BASELINES: baseline_parity,
+    then one request with its IoU-kernel launches counted (exactly 1) and
+    its peak memory, 20 timed requests and a profile. Returns each
+    config's launches a request."""
+    state_dict = torch.load(os.path.join(GOLDEN, "fullscale_multiscale.pth"),
+                            map_location="cpu", weights_only=True)
+    launches_per_request = {}
+    for name in BASELINES:
+        fields, infer, batch = baseline_parity(name, state_dict)
+        torch.cuda.reset_peak_memory_stats()
+        dets, launches = counted_call(infer, batch)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(launches == 1, f"{launches} IoU launches in a {name} request")
+        launches_per_request[name] = launches
+        phase("baselines", config=name, **fields,
+              rotated_iou_launches=launches, peak_mem_gib=peak,
+              **timed_requests(infer, batch), card=card)
+        del infer
+        torch.cuda.empty_cache()
+    return launches_per_request
+
+
+def baseline_recordings() -> dict:
+    """The baseline_recordings phase: RECORDED_BASELINES' checkpoints on
+    CUDA, their head maps against the reference's recordings at
+    tests/test_ckpt_import.py's bound, 2e-4."""
+    from coalign_tpu_torch.inference import to_device
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.runtime import configure_cuda
+    from coalign_tpu_torch.utils.weights import load_pth
+    configure_cuda()
+    out = {}
+    for fusion, extra in RECORDED_BASELINES.items():
+        io = np.load(os.path.join(GOLDEN, f"baseline_{fusion}_io.npz"))
+        model = load_pth(build_model({"core_method": "point_pillar_baseline",
+                                      "args": {**RECORDED_ARGS, **extra}}),
+                         os.path.join(GOLDEN, f"baseline_{fusion}.pth"))
+        batch = golden_batch(io, ("ego_points", "cav_points"), io["pairwise"],
+                             512)
+        with torch.no_grad():
+            maps = model(to_device(batch, "cuda"))
+        out[fusion] = {k: float(np.abs(maps[k].cpu().numpy() - io[k]).max())
+                       for k in ("cls_preds", "reg_preds", "dir_preds")}
+        for key, err in out[fusion].items():
+            check(err <= 2e-4, f"baseline_{fusion} {key}: {err:.2e} from "
+                  "the recording")
+    return out
+
+
 def stage1_train_full(card) -> tuple:
     """The stage1_train phase: pointpillar_uncertainty.yaml's detector from
     scratch (seed 0) at full width on LateFusionBatcher(train=True) batches
@@ -1576,6 +1755,12 @@ def main() -> int:
     early = early_check(card)
     phase("early", **early)
 
+    # 14. the intermediate-fusion baselines at full width, and two of them
+    # against the reference's recordings on the card
+    baseline_launches = baselines_check(card)
+    phase("baseline_recordings", max_abs_err=baseline_recordings(),
+          card=card)
+
     # 6. AP of the tiny flagship on the 10 recorded frames
     io_ap = np.load(os.path.join(GOLDEN, "e2e_ap_io.npz"))
     tiny = build_model({"core_method": "point_pillar_baseline_multiscale",
@@ -1682,6 +1867,7 @@ def main() -> int:
             coalign["rotated_iou_launches_per_request"],
         "launches_per_late_request": late["late"]["rotated_iou_launches"],
         "launches_per_early_request": early["rotated_iou_launches"],
+        "launches_per_baseline_request": baseline_launches,
         "launches_per_stage1_train_step":
             stage1_train["launches_per_train_step"],
         "max_abs_err": main["max_abs_err"],

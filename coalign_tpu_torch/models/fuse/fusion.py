@@ -1,6 +1,8 @@
 """Intermediate BEV fusion: warp every agent into the ego frame, then reduce
 over agents with a mask (ref fusion_in_one.py), ported from
-coalign_tpu/models/fuse/fusion.py. None of these fusions has parameters.
+coalign_tpu/models/fuse/fusion.py. None of these three fusions has
+parameters; build_fusion also builds the learned ones of graph_fusion.py
+and v2xvit.py by their yaml names.
 
 Every fusion takes features (B, L, C, H, W), the normalized pairwise
 affines (B, L, L, 2, 3) ([b, i, j] samples j's map into frame i) and
@@ -58,16 +60,55 @@ class AttFusion(nn.Module):
         return (att[:, :, None] * x).sum(dim=1)
 
 
+def _v2vnet(args: dict, dim: int) -> nn.Module:
+    from coalign_tpu_torch.models.fuse.graph_fusion import V2VNetFusion
+    sub = args.get("v2vnet", {})
+    if not sub.get("gru_flag", True):
+        raise NotImplementedError("V2VNet without its ConvGRU "
+                                  "('gru_flag: false') is not ported yet")
+    # yaml forms: 3 | [3] | [[3, 3]] (ref conv_gru kernel_size nesting)
+    ks = sub.get("conv_gru", {}).get("kernel_size", 3)
+    while isinstance(ks, (list, tuple)):
+        ks = ks[0]
+    return V2VNetFusion(sub.get("in_channels", dim),
+                        sub.get("num_iteration", 2),
+                        sub.get("agg_operator", "avg"), int(ks))
+
+
+def _disconet(args: dict, dim: int) -> nn.Module:
+    from coalign_tpu_torch.models.fuse.graph_fusion import DiscoFusion
+    return DiscoFusion(dim)
+
+
+def _when2comm(args: dict, dim: int) -> nn.Module:
+    from coalign_tpu_torch.models.fuse.graph_fusion import When2commFusion
+    sub = args.get("when2comm", {})
+    return When2commFusion(sub.get("in_channels", dim),
+                           sub.get("query_size", 32),
+                           sub.get("key_size", 256))
+
+
+def _v2xvit(args: dict, dim: int) -> nn.Module:
+    from coalign_tpu_torch.models.fuse.v2xvit import V2XViTFusion
+    return V2XViTFusion(args["v2xvit"], dim)
+
+
 _FUSIONS = {
-    "max": lambda dim: MaxFusion(),
-    "mean": lambda dim: MeanFusion(),
-    "att": AttFusion,
+    "max": lambda args, dim: MaxFusion(),
+    "mean": lambda args, dim: MeanFusion(),
+    "att": lambda args, dim: AttFusion(dim),
+    "disconet": _disconet,
+    "v2vnet": _v2vnet,
+    "when2comm": _when2comm,
+    "v2xvit": _v2xvit,
 }
 
 
-def build_fusion(method: str, feature_dim: int) -> nn.Module:
-    """A fusion module by its yaml name (``fusion_method``)."""
+def build_fusion(method: str, args: dict, feature_dim: int) -> nn.Module:
+    """A fusion module by its yaml name (``fusion_method``), configured
+    from the model's yaml ``args`` (the JAX package's factories,
+    coalign_tpu/models/fuse/fusion.py:77-136)."""
     if method not in _FUSIONS:
         raise KeyError(f"fusion {method!r} is not ported; have "
                        f"{sorted(_FUSIONS)}")
-    return _FUSIONS[method](feature_dim)
+    return _FUSIONS[method](args, feature_dim)

@@ -18,6 +18,12 @@ load strictly:
     ReLU (the JAX package's ConvBNReLU / ConvStage, models/layers.py:85,
     157, which pads the strided conv by 1 on each side: the same).
   * DownsampleConv: ref downsample_conv.py:30, the shrink header.
+  * NaiveCompressor: ref naive_compress.py:5, ``encoder.{0,1}`` and
+    ``decoder.{0,1,3,4}``: 3x3 convs *with* their bias, each before a
+    BatchNorm2d(eps 1e-3) and a ReLU. The JAX package's convs have no bias:
+    its checkpoint import folds the reference's into the norm's running
+    mean (coalign_tpu/utils/ckpt_import.py:195-212), so its weights come
+    here with a zero conv bias (utils/weights.from_jax_params).
   * MaskedBatchNorm: the channel-last batch norm of the pillar network.
 
 Every batch norm is the JAX package's MaskedBatchNorm (models/layers.py:
@@ -186,12 +192,14 @@ class ResNetTrunk(nn.Module):
 
 
 def conv_bn_relu(in_ch: int, out_ch: int, stride: int = 1,
-                 padding: int = 1) -> list:
-    """[3x3 conv without bias, masked batch norm (eps 1e-3), ReLU]: the
-    JAX package's ConvBNReLU as three entries of a Sequential, where the
-    reference keeps them."""
+                 padding: int = 1, bias: bool = False) -> list:
+    """[3x3 conv, masked batch norm (eps 1e-3), ReLU]: the JAX package's
+    ConvBNReLU as three entries of a Sequential, where the reference keeps
+    them. ``bias`` keeps the reference's conv bias before the norm where
+    its checkpoints have one (naive_compress.py, when2com_fuse.py); the
+    JAX package folds it into the running mean."""
     return [nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=padding,
-                      bias=False),
+                      bias=bias),
             MaskedBatchNorm2d(out_ch, eps=BN_EPS), nn.ReLU(inplace=True)]
 
 
@@ -261,3 +269,22 @@ class DownsampleConv(nn.Module):
         for layer in self.layers:
             x = layer(x)
         return x
+
+
+class NaiveCompressor(nn.Module):
+    """Channel bottleneck that models a lossy link (ref naive_compress.py:5):
+    C -> C / ratio -> C -> C, each a 3x3 conv, a batch norm and a ReLU."""
+
+    def __init__(self, input_dim: int, compress_ratio: int):
+        super().__init__()
+        mid = input_dim // compress_ratio
+        self.encoder = MaskedSequential(*conv_bn_relu(input_dim, mid,
+                                                      bias=True))
+        self.decoder = MaskedSequential(
+            *conv_bn_relu(mid, input_dim, bias=True),
+            *conv_bn_relu(input_dim, input_dim, bias=True))
+
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        """x (F, C, H, W); mask (F,) leaves padded agents out of the norms'
+        training statistics."""
+        return self.decoder(self.encoder(x, mask), mask)

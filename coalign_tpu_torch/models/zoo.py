@@ -5,7 +5,15 @@ Ports of coalign_tpu/models/zoo.py:
   * PointPillarBaselineMultiscale (:164-213; ref
     point_pillar_baseline_multiscale.py:17, aliased as the CoAlign model by
     point_pillar_coalign.py:9): PointPillars with per-scale intermediate
-    fusion;
+    fusion, optionally after a NaiveCompressor of the pillar canvas;
+  * PointPillarBaseline (:127-161; ref point_pillar_baseline.py:17): one
+    fusion after the whole backbone, the shrink and the optional
+    NaiveCompressor, with any fusion of models/fuse/fusion.py (F-Cooper's
+    max, att, mean, DiscoNet, V2VNet, When2comm, V2X-ViT);
+    PointPillarIntermediate (:216-225; ref point_pillar_intermediate.py:15)
+    is it with ``att`` by default, PointPillarDiscoNet (:383-407; ref
+    point_pillar_disconet.py:19) DiscoNet's student at inference, with
+    ``disconet`` by default and the fused map as ``feature``;
   * PointPillar (:82-106; ref point_pillar.py:17): one agent's detector,
     no fusion;
   * PointPillarUncertainty (:440-449; ref point_pillar_uncertainty.py:15):
@@ -33,7 +41,7 @@ from torch.profiler import record_function
 from coalign_tpu_torch.models.backbones import backbone_from_config
 from coalign_tpu_torch.models.fuse.fusion import build_fusion
 from coalign_tpu_torch.models.heads import add_detection_heads, detection_heads
-from coalign_tpu_torch.models.layers import DownsampleConv
+from coalign_tpu_torch.models.layers import DownsampleConv, NaiveCompressor
 from coalign_tpu_torch.models.pillar_encoder import PillarEncoder
 from coalign_tpu_torch.ops.pillars import PillarSpec
 from coalign_tpu_torch.runtime import resolve_device
@@ -61,9 +69,22 @@ class _PillarBase(nn.Module):
         self.backbone = backbone_from_config(bb, vfe["num_filters"][-1])
         self.shrink_conv = (DownsampleConv(args["shrink_header"])
                             if "shrink_header" in args else None)
-        head_in = (args["shrink_header"]["dim"][-1] if "shrink_header" in args
-                   else sum(bb["num_upsample_filter"]))
-        add_detection_heads(self, head_in, args)
+        self.out_dim = (args["shrink_header"]["dim"][-1]
+                        if "shrink_header" in args
+                        else sum(bb["num_upsample_filter"]))
+        add_detection_heads(self, self.out_dim, args)
+
+    def _encode_agents(self, batch: dict):
+        """The (B*L, C, ny, nx) pillar canvases of every agent slot, the
+        normalized pairwise affines (B, L, L, 2, 3) and (B, L)."""
+        b, l, n, _ = batch["points"].shape
+        with record_function("stage/pillar_encoder"):
+            bev = self.pillar_vfe(batch["points"].reshape(b * l, n, -1),
+                                  batch["point_mask"].reshape(b * l, n))
+        affine = normalize_pairwise_tfm(batch["pairwise_t_matrix"],
+                                        self.spec.ny, self.spec.nx,
+                                        self.args["voxel_size"][0])
+        return bev, affine, (b, l)
 
     def _shrink_heads(self, x: torch.Tensor) -> dict:
         if self.shrink_conv is not None:
@@ -72,40 +93,98 @@ class _PillarBase(nn.Module):
 
 
 class PointPillarBaselineMultiscale(_PillarBase):
-    """Pillar encoder -> backbone encode -> per-scale fusion -> decode ->
-    shrink -> heads (ref point_pillar_baseline_multiscale.py:93-138)."""
+    """Pillar encoder -> (compressor) -> backbone encode -> per-scale
+    fusion -> decode -> shrink -> heads (ref
+    point_pillar_baseline_multiscale.py:93-138)."""
 
     def __init__(self, args: dict):
-        for key in ("supervise_single", "compression"):
-            if args.get(key):
-                raise NotImplementedError(f"{key!r} is not ported yet")
+        if args.get("supervise_single"):
+            raise NotImplementedError("'supervise_single' is not ported yet")
         super().__init__(args)
         bb = args["base_bev_backbone"]
+        # the reference compresses the 64-channel pillar canvas
+        self.naive_compressor = (NaiveCompressor(64, args["compression"])
+                                 if args.get("compression", 0) else None)
         feat_dims = args.get("att", {}).get("feat_dim", list(bb["num_filters"]))
         self.fusion_net = nn.ModuleList(
-            [build_fusion(args["fusion_method"], feat_dims[i])
+            [build_fusion(args["fusion_method"], args, feat_dims[i])
              for i in range(len(bb["layer_nums"]))])
 
     def forward(self, batch: dict) -> dict:
         # the "stage/..." ranges name the stages in a torch.profiler trace
         # (chip_smoke.py's profile phase); without a profiler they record
         # nothing
-        b, l, n, _ = batch["points"].shape
-        with record_function("stage/pillar_encoder"):
-            bev = self.pillar_vfe(batch["points"].reshape(b * l, n, -1),
-                                  batch["point_mask"].reshape(b * l, n))
+        bev, affine, (b, l) = self._encode_agents(batch)
+        bn_mask = batch["agent_mask"].reshape(b * l)
+        if self.naive_compressor is not None:
+            bev = self.naive_compressor(bev, bn_mask)
         with record_function("stage/backbone_encode"):
-            feats = self.backbone.encode(bev,
-                                         batch["agent_mask"].reshape(b * l))
+            feats = self.backbone.encode(bev, bn_mask)
         with record_function("stage/fusion"):
-            affine = normalize_pairwise_tfm(batch["pairwise_t_matrix"],
-                                            self.spec.ny, self.spec.nx,
-                                            self.args["voxel_size"][0])
             fused = [fuse(feat.reshape((b, l) + feat.shape[1:]), affine,
                           batch["agent_mask"])
                      for fuse, feat in zip(self.fusion_net, feats)]
         with record_function("stage/decode_shrink_heads"):
             return self._shrink_heads(self.backbone.decode(fused))
+
+
+class PointPillarBaseline(_PillarBase):
+    """Pillar encoder -> backbone (encode and decode) -> shrink ->
+    (compressor) -> one fusion over (B, L, C, H, W) -> heads (ref
+    point_pillar_baseline.py:100-138)."""
+
+    def __init__(self, args: dict):
+        super().__init__(args)
+        self.naive_compressor = (
+            NaiveCompressor(self.out_dim, args["compression"])
+            if args.get("compression", 0) else None)
+        self.fusion_net = build_fusion(args["fusion_method"], args,
+                                       self.out_dim)
+
+    def _fuse(self, batch: dict) -> torch.Tensor:
+        """The fused ego map (B, C, H, W)."""
+        bev, affine, (b, l) = self._encode_agents(batch)
+        bn_mask = batch["agent_mask"].reshape(b * l)
+        with record_function("stage/backbone_shrink"):
+            x = self.backbone(bev, bn_mask)
+            if self.shrink_conv is not None:
+                x = self.shrink_conv(x)
+            if self.naive_compressor is not None:
+                x = self.naive_compressor(x, bn_mask)
+        with record_function("stage/fusion"):
+            return self.fusion_net(x.reshape((b, l) + x.shape[1:]), affine,
+                                   batch["agent_mask"])
+
+    def forward(self, batch: dict) -> dict:
+        fused = self._fuse(batch)
+        with record_function("stage/heads"):
+            return detection_heads(self, fused)
+
+
+class PointPillarIntermediate(PointPillarBaseline):
+    """OpenCOOD's attentive intermediate fusion: the baseline with ``att``
+    fusion unless the yaml names another (ref point_pillar_intermediate.py
+    :15)."""
+
+    def __init__(self, args: dict):
+        super().__init__({"fusion_method": "att", **args})
+
+
+class PointPillarDiscoNet(PointPillarBaseline):
+    """DiscoNet's student at inference: the baseline with ``disconet``
+    fusion unless the yaml names another, and the fused map as
+    ``feature`` (B, C, H, W), which its distillation reads (ref
+    point_pillar_disconet.py:19-100)."""
+
+    def __init__(self, args: dict):
+        super().__init__({"fusion_method": "disconet", **args})
+
+    def forward(self, batch: dict) -> dict:
+        fused = self._fuse(batch)
+        with record_function("stage/heads"):
+            out = detection_heads(self, fused)
+        out["feature"] = fused
+        return out
 
 
 class PointPillar(_PillarBase):
@@ -140,6 +219,9 @@ _MODELS = {
     "point_pillar_uncertainty": PointPillarUncertainty,
     "point_pillar_baseline_multiscale": PointPillarBaselineMultiscale,
     "point_pillar_coalign": CoAlign,
+    "point_pillar_baseline": PointPillarBaseline,
+    "point_pillar_intermediate": PointPillarIntermediate,
+    "point_pillar_disconet": PointPillarDiscoNet,
 }
 
 
@@ -156,11 +238,16 @@ def init_weights(model: nn.Module, generator: torch.Generator):
     """The JAX package's initialization (flax's defaults): lecun_normal
     kernels with fan_in = input width times kernel area (flax counts a
     ConvTranspose's input channels too), zero biases, batch norms with
-    scale 1, bias 0, running mean 0 and variance 1."""
+    scale 1, bias 0, running mean 0 and variance 1, layer norms with scale
+    1 and bias 0; a module's own parameters (V2X-ViT's relation matrices
+    and position embeddings) by its ``init_weights(generator)``."""
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+            if isinstance(mod, (nn.modules.batchnorm._BatchNorm,
+                                nn.LayerNorm)):
                 mod.reset_parameters()
+            elif hasattr(mod, "init_weights"):
+                mod.init_weights(generator)
             elif isinstance(mod, nn.Linear):
                 _lecun_normal_(mod.weight, mod.in_features, generator)
             elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):

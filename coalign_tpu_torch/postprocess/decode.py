@@ -65,9 +65,9 @@ def post_process(cls_preds, reg_preds, anchors, transformation_matrix,
     """Head maps of a batch -> final boxes.
 
     cls_preds (B, A, H, W) logits, reg_preds (B, 7A, H, W), dir_preds
-    (B, bins*A, H, W) or None, unc_preds (B, U*A, H, W) log-variances or
-    None, anchors (H, W, A, 7) 'hwl', transformation_matrix (B, 4, 4) to the
-    ego frame.
+    (B, bins*A, H, W) or None (zero logits then: direction bin 0),
+    unc_preds (B, U*A, H, W) log-variances or None, anchors (H, W, A, 7)
+    'hwl', transformation_matrix (B, 4, 4) to the ego frame.
 
     Returns corners3d (B, max_keep, 8, 3), boxes7 (B, max_keep, 7), scores
     (B, max_keep) and mask (B, max_keep) bool, ranked by score, and with
@@ -97,10 +97,13 @@ def post_process(cls_preds, reg_preds, anchors, transformation_matrix,
 
     sel_boxes = delta_to_boxes3d_rows(take(_rows(reg_preds, 7)),
                                       anchors.reshape(-1, 7)[sel_idx])
-    if dir_preds is not None:
-        sel_boxes = correct_direction(sel_boxes,
-                                      take(_rows(dir_preds, num_bins)),
-                                      dir_offset, num_bins)
+    if dir_preds is None:
+        # a model without a direction head: zero logits still resolve the
+        # heading, as the JAX infer fns feed them (inference.py:104-107)
+        dir_preds = cls_preds.new_zeros(
+            (b, num_bins * cls_preds.shape[1]) + cls_preds.shape[2:])
+    sel_boxes = correct_direction(sel_boxes, take(_rows(dir_preds, num_bins)),
+                                  dir_offset, num_bins)
 
     corners = B.boxes_to_corners_3d(sel_boxes, "hwl")              # (B,P,8,3)
     corners = B.project_box3d(corners, transformation_matrix[:, None])

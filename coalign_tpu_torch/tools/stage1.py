@@ -47,7 +47,6 @@ def make_stage1_fn(model, anchors, postprocess_cfg: dict, max_boxes=24,
     what the detector made of its empty canvas, with box_mask False, as in
     the JAX package."""
     dev, anchors, kwargs = infer_setup(model, anchors, postprocess_cfg, device)
-    num_bins = kwargs["num_bins"]
 
     @torch.no_grad()
     def stage1(batch: dict) -> dict:
@@ -56,15 +55,9 @@ def make_stage1_fn(model, anchors, postprocess_cfg: dict, max_boxes=24,
         with record_function("stage/stage1"):
             out = model(b)                                  # (B*L, ...) maps
             cls = out["cls_preds"]
-            # the JAX stage-1 fn feeds a model without a direction head
-            # zero direction logits, which still resolve the heading
-            dir_preds = out.get("dir_preds")
-            if dir_preds is None:
-                dir_preds = cls.new_zeros((cls.shape[0], num_bins
-                                           * cls.shape[1]) + cls.shape[2:])
             eye = torch.eye(4, device=dev).expand(cls.shape[0], 4, 4)
             det = post_process(cls, out["reg_preds"], anchors, eye,
-                               dir_preds=dir_preds,
+                               dir_preds=out.get("dir_preds"),
                                unc_preds=out["unc_preds"],
                                max_keep=max_boxes, **kwargs)
             mask = det["mask"].reshape(n_b, n_l, -1)

@@ -3,12 +3,27 @@
 Port modules carry the reference opencood state-dict names, so a reference
 checkpoint loads with ``load_state_dict(strict=True)`` (:func:`load_pth`).
 :func:`from_jax_params` turns the variables of a coalign_tpu PointPillars
-model (the flagship, ``point_pillar``, ``point_pillar_uncertainty``;
-``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy arrays)
-into such a state dict: it is the inverse of the PointPillars-family maps of
+model (the flagship, ``point_pillar``, ``point_pillar_uncertainty``,
+``point_pillar_baseline`` with any ported fusion, ``point_pillar_
+intermediate``, ``point_pillar_disconet``; ``{"params": ...,
+"batch_stats": ...}`` as nested dicts of numpy arrays) into such a state
+dict: it is the inverse of the PointPillars-family maps of
 coalign_tpu/utils/ckpt_import.py (``_map_pfn``, ``_map_resnet_trunk``, the
 plain backbone's stages, ``_map_deblocks`` with the extra deblock,
-``_map_shrink`` and the head keys).
+``_map_shrink``, ``_map_compressor``, ``_map_fusion`` with
+``_map_pixel_weight``, ``_map_v2vnet_fusion``, ``_map_when2comm_fusion``,
+``_map_cbr`` and ``_map_v2xvit_fusion``, and the head keys). A baseline's
+fusion is ``fusion`` in flax and ``fusion_net`` here, the multiscale
+model's ``fusion_nets_{i}`` and ``fusion_net.{i}``.
+
+Where the reference has weights the JAX package has not, the state dict
+gets zeros, which compute what the JAX package computes: the bias of a
+conv before a batch norm (the JAX import folds it into the running mean),
+and the weights the reference's forward never reads (When2comm's
+``attention_net.linear_out``, V2X-ViT's ``encoder.prior_feed``). V2X-ViT's
+per-type HGT linears are stacked (T, in, out) in flax and ``{k,q,v,a}_
+linears.{t}`` here; When2comm's first key and query Linear reads the
+pooled (128, 5, 7) map flattened HWC in flax and CHW here.
 
 Layouts (flax -> torch):
   Dense kernel (in, out)                        -> Linear weight (out, in)
@@ -115,6 +130,170 @@ def _torch_key(path: str, layer_nums) -> tuple[str, str]:
     raise KeyError(f"no port parameter for flax variable {path!r}")
 
 
+# fusion modules: flax module path (inside ``fusion`` / ``fusion_nets_{i}``)
+# -> (port module, layout of its kernel); "conv0" is a conv whose
+# reference bias the JAX package folded into the next batch norm
+def _cbr(pattern: str, unit) -> list:
+    """A flax ConvBNReLU -> the reference's [conv with bias, batch norm]
+    at ``{unit}.0`` and ``{unit}.1``."""
+    def name(i):
+        return lambda m: f"{unit(m) if callable(unit) else unit}.{i}"
+    return [(rf"{pattern}/Conv_0", name(0), "conv0"),
+            (rf"{pattern}/MaskedBatchNorm_0", name(1), "bn")]
+
+
+_FUSION_MODULES = [
+    (r"PixelWeightLayer_0/ConvBNReLU_(\d)/Conv_0",
+     lambda m: f"pixel_weight_layer.conv1_{int(m[1]) + 1}", "conv0"),
+    (r"PixelWeightLayer_0/ConvBNReLU_(\d)/MaskedBatchNorm_0",
+     lambda m: f"pixel_weight_layer.bn1_{int(m[1]) + 1}", "bn"),
+    (r"PixelWeightLayer_0/Conv_0", "pixel_weight_layer.conv1_4", "conv"),
+    (r"msg_cnn", "msg_cnn", "conv"),
+    (r"conv_gru/(conv_gates|conv_can)",
+     lambda m: f"conv_gru.cell_list.0.{m[1]}", "conv"),
+    (r"mlp", "mlp", "linear"),
+    *_cbr(r"ConvBNReLU_([0-4])",
+          lambda m: f"query_key_net.conv{int(m[1]) + 1}.cbr_unit"),
+    *_cbr(r"ConvBNReLU_5", "key_net.conv1.cbr_unit"),
+    *_cbr(r"ConvBNReLU_6", "query_net.conv1.cbr_unit"),
+    (r"(key|query)_fc1", lambda m: f"{m[1]}_net.fc.0", "linear_hwc"),
+    (r"(key|query)_fc([23])",
+     lambda m: f"{m[1]}_net.fc.{2 * int(m[2]) - 2}", "linear"),
+    (r"att_(feat|context)", lambda m: f"attention_net.linear_{m[1]}",
+     "linear"),
+]
+_COMPRESSOR_SLOTS = {"0": ("encoder.0", "encoder.1"),
+                     "1": ("decoder.0", "decoder.1"),
+                     "2": ("decoder.3", "decoder.4")}
+_LEAF_FIELDS = {"kernel": "weight", "bias": "bias", **_BN_FIELDS}
+
+
+def _hwc_rows_to_chw(k):
+    """When2comm's fc1: flax (5*7*128 HWC rows, out) -> torch (out, 128*5*7
+    CHW columns), the inverse of ckpt_import.py:407-412."""
+    return k.reshape(5, 7, 128, -1).transpose(3, 2, 0, 1).reshape(
+        k.shape[-1], -1)
+
+
+_KERNELS = {"conv": _conv, "conv0": _conv, "linear": lambda k: k.T,
+            "linear_hwc": _hwc_rows_to_chw}
+
+
+def _module_entries(module: str, kind: str, leaf: str, value) -> list:
+    """One flax leaf of a mapped module -> [(port key, array)]; a conv0
+    kernel brings its zero bias."""
+    if leaf != "kernel":
+        return [(f"{module}.{_LEAF_FIELDS[leaf]}", value)]
+    out = [(f"{module}.weight", _KERNELS[kind](value))]
+    if kind == "conv0":
+        out.append((f"{module}.bias", np.zeros(value.shape[-1], np.float32)))
+    return out
+
+
+def _v2xvit_entries(rest: str, value, nb: int) -> list:
+    """A flax leaf of the JAX V2XViTFusion -> [(key under its
+    ``fusion_net.``, array)] (the inverse of ckpt_import.py:264-360; nb =
+    blocks per depth)."""
+    enc = "fusion_net.encoder.layers"
+    leaf = rest.split("/")[-1]
+    if m := re.fullmatch(r"LayerNorm_(\d+)/\w+", rest):
+        d, r = divmod(int(m[1]), 2 * nb + 1)
+        mod = (f"{enc}.{d}.1.norm" if r == 2 * nb
+               else f"{enc}.{d}.0.layers.{r // 2}.{r % 2}.norm")
+        return [(f"{mod}.{'weight' if leaf == 'scale' else 'bias'}", value)]
+    if m := re.fullmatch(r"Dense_(\d+)/\w+", rest):
+        d, second = divmod(int(m[1]), 2)
+        out = _module_entries(f"{enc}.{d}.1.fn.net.{3 * second}", "linear",
+                              leaf, value)
+        if int(m[1]) == 0 and leaf == "kernel":   # dead in the reference
+            dim = value.shape[0]
+            out += [("fusion_net.encoder.prior_feed.weight",
+                     np.zeros((dim, dim + 3), np.float32)),
+                     ("fusion_net.encoder.prior_feed.bias",
+                      np.zeros(dim, np.float32))]
+        return out
+    m = re.fullmatch(r"(HGTCavAttention|CavAttention|PyramidWindowAttention)"
+                     r"_(\d+)/(.+)", rest)
+    if not m:
+        raise KeyError(f"no port parameter for V2X-ViT variable {rest!r}")
+    d, b = divmod(int(m[2]), nb)
+    base = f"{enc}.{d}.0.layers.{b}.{int(m[1] == 'PyramidWindowAttention')}.fn"
+    inner = m[3]
+    if m2 := re.fullmatch(r"([kqva])_([wb])", inner):       # (T, ...) stacked
+        field = "weight" if m2[2] == "w" else "bias"
+        return [(f"{base}.{m2[1]}_linears.{t}.{field}",
+                 v.T if field == "weight" else v)
+                for t, v in enumerate(value)]
+    if inner in ("relation_att", "relation_msg"):
+        return [(f"{base}.{inner}", value)]
+    if m2 := re.fullmatch(r"WindowAttention_(\d+)/pos_embedding", inner):
+        return [(f"{base}.pwmsa.{m2[1]}.pos_embedding", value)]
+    if m2 := re.fullmatch(r"(?:WindowAttention_(\d+)/)?(to_qkv|to_out)/\w+",
+                          inner):
+        mod = f"{base}.pwmsa.{m2[1]}" if m2[1] is not None else base
+        mod += ".to_qkv" if m2[2] == "to_qkv" else ".to_out.0"
+        return _module_entries(mod, "linear", leaf, value)
+    if m2 := re.fullmatch(r"SplitAttn_0/(fc1|fc2|bn1)/\w+", inner):
+        if m2[1] == "bn1":
+            return [(f"{base}.split_attn.bn1."
+                     f"{'weight' if leaf == 'scale' else 'bias'}", value)]
+        return _module_entries(f"{base}.split_attn.{m2[1]}", "linear", leaf,
+                               value)
+    raise KeyError(f"no port parameter for V2X-ViT variable {rest!r}")
+
+
+def _fusion_entries(rest: str, value, nb) -> list:
+    """A flax leaf inside a fusion module -> [(key under the port's fusion
+    module, array)]; ``nb`` is V2X-ViT's blocks per depth, None for the
+    other fusions."""
+    if nb is not None:
+        return _v2xvit_entries(rest, value, nb)
+    module, leaf = rest.rsplit("/", 1)
+    for pattern, name, kind in _FUSION_MODULES:
+        if m := re.fullmatch(pattern, module):
+            name = name(m) if callable(name) else name
+            out = _module_entries(name, kind, leaf, value)
+            if name == "attention_net.linear_context" and leaf == "kernel":
+                out += [("attention_net.linear_out.weight",  # dead in the ref
+                         np.zeros((1, value.shape[-1]), np.float32)),
+                        ("attention_net.linear_out.bias",
+                         np.zeros(1, np.float32))]
+            return out
+    raise KeyError(f"no port parameter for fusion variable {rest!r}")
+
+
+def _v2xvit_blocks(flat: dict) -> dict:
+    """flax fusion prefix -> V2X-ViT's blocks per depth, for the fusions
+    that are V2X-ViT: agent-attention modules over feed-forward pairs."""
+    atts, denses = {}, {}
+    for path in flat:
+        if m := re.match(r"(fusion(?:_nets_\d+)?)/(?:HGT)?CavAttention_(\d+)/",
+                         path):
+            atts.setdefault(m[1], set()).add(m[2])
+        elif m := re.match(r"(fusion(?:_nets_\d+)?)/Dense_(\d+)/", path):
+            denses.setdefault(m[1], set()).add(m[2])
+    return {p: len(a) // (len(denses[p]) // 2) for p, a in atts.items()}
+
+
+def _entries(path: str, value, layer_nums, v2xvit_blocks: dict) -> list:
+    """A flax variable -> [(port key, array)]."""
+    if m := re.fullmatch(r"compressor/ConvBNReLU_(\d)/(Conv_0|"
+                         r"MaskedBatchNorm_0)/(\w+)", path):
+        conv, bn = _COMPRESSOR_SLOTS[m[1]]
+        if m[2] == "Conv_0":
+            return _module_entries(f"naive_compressor.{conv}", "conv0", m[3],
+                                   value)
+        return _module_entries(f"naive_compressor.{bn}", "bn", m[3], value)
+    if m := re.fullmatch(r"(fusion(?:_nets_(\d+))?)/(.+)", path):
+        prefix = "fusion_net." if m[2] is None else f"fusion_net.{m[2]}."
+        return [(prefix + k, v) for k, v in _fusion_entries(
+            m[3], value, v2xvit_blocks.get(m[1]))]
+    key, kind = _torch_key(path, layer_nums)
+    convert = {"plain": lambda v: v, "linear": lambda v: v.T,
+               "conv": _conv, "tconv": _tconv}
+    return [(key, convert[kind](value))]
+
+
 def _need(layer_nums, path: str):
     if layer_nums is None:
         raise ValueError(f"{path!r} needs the backbone's layer_nums: pass "
@@ -133,16 +312,14 @@ def from_jax_params(variables: dict, layer_nums=None) -> dict:
     strides or widens, so the names cannot tell."""
     flat = {**_flatten(variables.get("params", {})),
             **_flatten(variables.get("batch_stats", {}))}
-    convert = {"plain": lambda v: v, "linear": lambda v: v.T,
-               "conv": _conv, "tconv": _tconv}
+    v2xvit_blocks = _v2xvit_blocks(flat)
     sd = {}
     for path, value in flat.items():
-        key, kind = _torch_key(path, layer_nums)
-        sd[key] = torch.from_numpy(np.array(convert[kind](value),
-                                            dtype=np.float32))
-        if key.endswith(".running_var"):
-            sd[key[:-len("running_var")] + "num_batches_tracked"] = \
-                torch.tensor(0)
+        for key, array in _entries(path, value, layer_nums, v2xvit_blocks):
+            sd[key] = torch.from_numpy(np.array(array, dtype=np.float32))
+            if key.endswith(".running_var"):
+                sd[key[:-len("running_var")] + "num_batches_tracked"] = \
+                    torch.tensor(0)
     return sd
 
 

@@ -298,3 +298,31 @@ def test_stride1_stage_of_equal_width_loads_on_cuda(cuda):
         got = trunks["cuda"](x.to(cuda))
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pointpillar_v2vnet", "pointpillar_v2xvit"])
+def test_baselines_on_cuda_match_cpu(cuda, name):
+    # chip_smoke.py's baselines phase without its timing: the yaml's model
+    # at full width on the recording's agents, CUDA against the CPU (head
+    # maps within 2e-3, box sets IoU > 0.95 and scores within 1e-3, at
+    # least 10 boxes), one IoU launch a request
+    import os
+
+    from chip_smoke import (BASELINE_MIN_BOXES, GOLDEN, baseline_parity,
+                            counted_call)
+    state_dict = torch.load(os.path.join(GOLDEN, "fullscale_multiscale.pth"),
+                            map_location="cpu", weights_only=True)
+    fields, infer, batch = baseline_parity(name, state_dict)
+    assert fields["boxes"] >= BASELINE_MIN_BOXES
+    assert fields["seeded_fusion_tensors"] > 0
+    assert counted_call(infer, batch)[1] == 1
+
+
+@pytest.mark.cuda
+def test_recorded_baselines_on_cuda(cuda):
+    # chip_smoke.py's baseline_recordings: DiscoNet's and V2VNet's
+    # reference checkpoints on CUDA reproduce their recordings within 2e-4
+    from chip_smoke import baseline_recordings
+    errs = baseline_recordings()
+    assert set(errs) == {"disconet", "v2vnet"}

@@ -210,7 +210,7 @@ def test_fusion_matches_jax(method):
     jmod = JF.build_fusion(method, {}, c)
     want = np.asarray(jmod.apply({}, jnp.asarray(feats), jnp.asarray(aff),
                                  jnp.asarray(mask)))
-    got = TF.build_fusion(method, c)(
+    got = TF.build_fusion(method, {}, c)(
         torch.from_numpy(feats).permute(0, 1, 4, 2, 3), torch.from_numpy(aff),
         torch.from_numpy(mask))
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,

@@ -76,9 +76,10 @@ def test_every_module_imports_with_jax_blocked():
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = {"core_method": "point_pillar_coalign", "args": {}}
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        build_model(cfg)
+    for core in ("point_pillar_coalign", "point_pillar_baseline",
+                 "point_pillar_intermediate", "point_pillar_disconet"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model({"core_method": core, "args": {}})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_infer_fn(torch.nn.Identity(), [], {})
     with pytest.raises(RuntimeError, match="device='cpu'"):
