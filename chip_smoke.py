@@ -78,7 +78,17 @@ Phases, each printing one JSON line with its elapsed seconds:
              requests and a profile;
      baseline_recordings   DiscoNet's and V2VNet's reference checkpoints
              on CUDA against their recordings (2e-4).
-Then one JSON line describing each kernel, timed at five shapes (the main
+ 15. disk    the on-disk data path and the run CLI (disk_check, one line a
+             step): an OPV2V fixture tree of 8 full-size frames written and
+             read back; the host's read and assembly ms a frame; run
+             config_generate, train and a resumed train on the tree; run
+             inference of a reference-style run directory (frame 0 against
+             make_infer_fn, 1 IoU launch a frame, frames/s from disk, the
+             loop's busy share); run precalc and the inference it corrects;
+             the noise_sweep and pose_graph_eval command lines; the tiny
+             reference run on CUDA against the CPU.
+Then one JSON line describing each kernel (with its launches on each
+path above), timed at five shapes (the main
 path's NMS input; that input stacked 8 times, a B=8 batch's one launch; 8
 frames of densely packed boxes; the stage-1 NMS input over 5 agent frames;
 the late request's joint NMS input) beside its bound and the time of one
@@ -240,6 +250,10 @@ STAGE1_POSTPROCESS = {"target_args": YAML_TARGETS, "nms_thresh": 0.15,
                       "gt_range": FULL_ARGS["lidar_range"],
                       "dir_args": FULL_ARGS["dir_args"]}
 STAGE1_BOXES = 24
+# the tiny flagship's stage-1 twin (coalign_multiscale.pth's shared weights)
+TINY_STAGE1_ARGS = {**{k: v for k, v in TINY_ARGS.items()
+                       if k not in ("fusion_method", "att")},
+                    "uncertainty_dim": 3}
 YAML_BOX_ALIGN = {"use_uncertainty": True, "landmark_SE2": True,
                   "adaptive_landmark": False, "normalize_uncertainty": False,
                   "abandon_hard_cases": True, "drop_hard_boxes": True}
@@ -332,6 +346,22 @@ RECORDED_BASELINES = {
             "H": 32, "W": 32, "kernel_size": [[3, 3]], "num_layers": 1}}},
 }
 
+# The on-disk path: the OPV2V yamls read in place, pointed at a fixture tree
+# that the port's write_opv2v_fixture writes from synthetic scenes at the
+# train phase's scale (8 frames in 2 scenarios, 5 agents of up to 24,000
+# points, those in range, the last agent an RSU); the CLI's runs read it
+# back from disk.
+HYPES = os.path.join(ROOT, "coalign_tpu", "hypes_yaml", "opv2v")
+DISK_SCENES = {**TRAIN_SCENES, "num_frames": 8, "seed": 21}
+DISK_FRAMES_PER_SCENARIO = 4
+DISK_SWEEP_LEVELS = "0,0.4"
+# the tiny reference-style run directory: the tiny flagship of the ap phase
+# (coalign_multiscale.pth) on a tree at its +-12.8 m range; its config
+# leaves pad_parity unset, as a reference run's does
+TINY_DISK_SCENES = dict(num_frames=4, num_agents=2, num_objects=3,
+                        lidar_range=LATE_RANGE, points_per_object=48,
+                        ground_points=96, seed=3)
+
 # published H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor
 # cores, HBM3 bandwidth
 PEAK_F32_OPS = 67e12
@@ -355,6 +385,100 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def hypes_at(name: str, tree: str, lidar_range=None,
+             model_args: dict | None = None) -> dict:
+    """The OPV2V yaml ``name`` (coalign_tpu/hypes_yaml/opv2v/, read in
+    place) pointed at the fixture tree ``tree``: root_dir and validate_dir
+    the tree, no test_dir; with ``lidar_range`` cut to that range (the
+    preprocess range, the gt range, the anchors and the model) and its
+    derived params computed anew; with ``model_args`` another model."""
+    from coalign_tpu_torch.config.yaml_utils import PARSERS, load_yaml
+    params = load_yaml(os.path.join(HYPES, f"{name}.yaml"))
+    params.update(root_dir=tree, validate_dir=tree, test_dir=None)
+    if model_args is not None:
+        params["model"]["args"] = json.loads(json.dumps(model_args))
+    if lidar_range is not None:
+        lr = list(lidar_range)
+        params["preprocess"]["cav_lidar_range"] = lr
+        params["postprocess"]["gt_range"] = lr
+        params["postprocess"]["anchor_args"]["cav_lidar_range"] = lr
+        params["model"]["args"]["lidar_range"] = lr
+        params = PARSERS[params["yaml_parser"]](params)
+    return params
+
+
+def write_run_dir(model_dir: str, params: dict, checkpoint: str) -> str:
+    """A reference-style run directory: ``params`` as config.yaml and
+    ``checkpoint`` as net_epoch1.pth. Returns the directory."""
+    import shutil
+
+    from coalign_tpu_torch.config.yaml_utils import save_yaml
+    os.makedirs(model_dir, exist_ok=True)
+    save_yaml(params, os.path.join(model_dir, "config.yaml"))
+    shutil.copyfile(checkpoint, os.path.join(model_dir, "net_epoch1.pth"))
+    return model_dir
+
+
+def tiny_reference_run(workdir: str, device=None) -> tuple:
+    """The tiny reference-style run directory under ``workdir``: a fixture
+    tree of TINY_DISK_SCENES and a run directory of the tiny flagship
+    (TINY_ARGS without pad_parity, which the CLI's loader sets for a
+    reference run) with coalign_multiscale.pth. The checkpoint is not
+    trained on these scenes, so each frame's gt is crafted from its
+    detections (on ``device``) as generate_fixtures.py's gen_e2e_ap crafts
+    the ap phase's: its first six boxes moved by graded offsets and one far
+    box, so that AP is not 0 and changes across the three IoU gates.
+    Returns (tree, run directory)."""
+    from coalign_tpu_torch.data import IntermediateFusionBatcher, SyntheticScenes
+    from coalign_tpu_torch.data.fixtures import write_opv2v_fixture
+    from coalign_tpu_torch.inference import make_infer_fn
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.utils.box_utils import project_boxes7_by_tfm
+    from coalign_tpu_torch.utils.transforms import pose_to_tfm
+    from coalign_tpu_torch.utils.weights import load_pth
+
+    model = build_model({"core_method": "point_pillar_baseline_multiscale",
+                         "args": TINY_ARGS}, device=device)
+    load_pth(model, os.path.join(GOLDEN, "coalign_multiscale.pth"))
+    post = {"target_args": YAML_TARGETS, "nms_thresh": 0.15,
+            "gt_range": LATE_RANGE, "dir_args": TINY_ARGS["dir_args"]}
+    infer = make_infer_fn(model, generate_anchor_box(TINY_ANCHORS), post,
+                          device=device)
+    batcher = IntermediateFusionBatcher(max_cav=2, lidar_range=LATE_RANGE)
+    scenes = SyntheticScenes(**TINY_DISK_SCENES)
+    rng = np.random.default_rng(777)
+    frames = []
+    for i in range(len(scenes)):
+        frame = scenes[i]
+        dets = {k: v.cpu().numpy() for k, v in
+                infer(batcher.assemble([frame])).items()}
+        boxes = dets["boxes7"][0][dets["mask"][0]][:6].astype(np.float64)
+        check(len(boxes) == 6, f"tiny frame {i}: {len(boxes)} detections")
+        ang = rng.uniform(0, 2 * np.pi, len(boxes))
+        dist = np.array([0.0, 0.3, 0.8, 1.5, 2.5, 0.15])
+        gt = np.concatenate([boxes, boxes[:1]])
+        gt[:-1, 0] += dist * np.cos(ang)
+        gt[:-1, 1] += dist * np.sin(ang)
+        gt[-1, :2] += [9.0, 7.0]
+        world = project_boxes7_by_tfm(
+            gt, pose_to_tfm(frame["agents"][0]["pose"].astype(np.float64)))
+        frames.append(dict(frame, objects={
+            "boxes": world.astype(np.float32),
+            "ids": np.arange(len(gt), dtype=np.int64)}))
+    tree = write_opv2v_fixture(os.path.join(workdir, "tiny_tree"), frames,
+                               frames_per_scenario=2)
+    args = json.loads(json.dumps(TINY_ARGS))
+    del args["pillar_vfe"]["pad_parity"]
+    params = hypes_at("pointpillar_coalign", tree, LATE_RANGE, args)
+    params.pop("box_align")
+    params["noise_setting"] = {"add_noise": False}
+    params["train_params"]["max_cav"] = 2
+    run = write_run_dir(os.path.join(workdir, "tiny_run"), params,
+                        os.path.join(GOLDEN, "coalign_multiscale.pth"))
+    return tree, run
 
 
 def seeded_corners(n: int, seed: int, spread: float = 10.0) -> np.ndarray:
@@ -982,13 +1106,16 @@ def _capture_iou_inputs():
     return captured, restore
 
 
-def stage1_model(device):
-    """The stage-1 detector at full width (STAGE1_ARGS, seed 0) with every
-    weight but its uncertainty head from the flagship checkpoint."""
+def stage1_model(device, args=STAGE1_ARGS,
+                 checkpoint: str = "fullscale_multiscale.pth"):
+    """The stage-1 detector (``args``: STAGE1_ARGS at full width, seed 0)
+    with every weight but its uncertainty head from the flagship
+    checkpoint ``checkpoint`` of tests/golden/ (TINY_STAGE1_ARGS go with
+    coalign_multiscale.pth)."""
     from coalign_tpu_torch.models.zoo import build_model
     model = build_model({"core_method": "point_pillar_uncertainty",
-                         "args": STAGE1_ARGS}, device=device, seed=0)
-    sd = torch.load(os.path.join(GOLDEN, "fullscale_multiscale.pth"),
+                         "args": args}, device=device, seed=0)
+    sd = torch.load(os.path.join(GOLDEN, checkpoint),
                     map_location="cpu", weights_only=True)
     missing, unexpected = model.load_state_dict(sd, strict=False)
     check(sorted(missing) == ["unc_head.bias", "unc_head.weight"]
@@ -1613,6 +1740,313 @@ def stage1_to_ap(device=None) -> dict:
                            for key, (t, r) in errs.items()}}
 
 
+def cli(fn, *args) -> tuple:
+    """(fn(*args), what it printed): one of the port's command lines (a
+    ``main`` and its argv), run in this process."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def npy_box_set(npy_dir: str, idx: int) -> tuple:
+    """(corners, scores) of the kept boxes of batch ``idx``'s first frame in
+    an inference's --save_npy dump."""
+    def load(name):
+        return np.load(os.path.join(npy_dir, f"{idx:05d}_{name}.npy"))[0]
+    mask = load("pred_mask")
+    return load("pred_corners")[mask], load("pred_scores")[mask]
+
+
+def host_read_ms(params: dict, batch_size: int | None) -> float:
+    """Host ms a frame to read the tree's frames (a new dataset, so no
+    frame is cached) and, with ``batch_size``, to assemble them into
+    batches of that size."""
+    from coalign_tpu_torch.data import build_dataset
+    base, batcher = build_dataset(params, train=False)
+    t = time.perf_counter()
+    if batch_size is None:
+        for i in range(len(base)):
+            base[i]
+    else:
+        for _ in batcher.batches(base, batch_size, shuffle=False,
+                                 drop_last=False):
+            pass
+    return (time.perf_counter() - t) * 1e3 / len(base)
+
+
+def host_parse_ms(tree: str, frames: int) -> dict:
+    """Host ms a frame to parse the tree's cav params (from the json side
+    files where there are, else the yamls) and its point clouds, each
+    alone."""
+    from coalign_tpu_torch.data.opv2v import _load_params
+    from coalign_tpu_torch.data.pcd_io import read_pcd
+    files = sorted(os.path.join(d, f[:-5]) for d, _, fs in os.walk(tree)
+                   for f in fs if f.endswith(".yaml"))
+    out = {}
+    for name, read, ext in (("params_ms", _load_params, ".yaml"),
+                            ("pcd_ms", read_pcd, ".pcd")):
+        t = time.perf_counter()
+        for f in files:
+            read(f + ext)
+        out[name] = (time.perf_counter() - t) * 1e3 / frames
+    return out
+
+
+def disk_check(card: str, serve_ms: float) -> dict:
+    """The disk phase: the on-disk data path and the run CLI at full width.
+
+      read   write_opv2v_fixture writes DISK_SCENES (8 frames in 2
+             scenarios, 5 agents, an RSU last) and
+             build_dataset reads them back: poses and points exact, boxes
+             within 1e-4 m, the RSU never the ego;
+      host   host ms a frame to read (5 yamls, 5 pcds; the params and the
+             clouds also each alone) and to assemble at B=1 and B=4, from
+             the yamls and from precache_json's side files, beside the
+             serve phase's request ms (the files were just written, so
+             they come from the page cache);
+      train  run config_generate on pointpillar_coalign.yaml, run train on
+             it over the tree for 1 epoch at the yaml's B=4 (config.yaml
+             with pad_parity false, net_epoch1.pth, scripts_backup.zip),
+             then a second train that resumes from net_epoch1.pth;
+      inference   a reference-style run directory (the yaml on the tree,
+             fullscale_multiscale.pth as net_epoch1.pth) through run
+             inference --save_npy: frame 0's dump holds make_infer_fn's box
+             set on the same batch assembled here (match_box_sets' bounds);
+             1 IoU launch a frame; the eval loop's frames/s from disk and
+             the device's busy share in it;
+      coalign    run precalc with the stage1 phase's detector saved as a
+             .pth (stage1_boxes.json), then run inference with box_align
+             at that json and the yaml's pose noise: AP, IoU launches a
+             precalc batch and an eval frame, frames corrected and
+             abandoned by the pose graph;
+      sweep  the noise_sweep command line at pose noise 0 and 0.4 and
+             pose_graph_eval on a run directory of that detector (both
+             reported);
+      parity the tiny reference run (tiny_reference_run) through run
+             inference on CUDA and on the CPU: the same box sets at
+             match_box_sets' bounds, AP within 0.005.
+    Returns the IoU launches of a CLI eval frame and of a precalc batch."""
+    import shutil
+
+    from coalign_tpu_torch.config.yaml_utils import load_yaml, save_yaml
+    from coalign_tpu_torch.data import SyntheticScenes, build_dataset
+    from coalign_tpu_torch.data.fixtures import write_opv2v_fixture
+    from coalign_tpu_torch.data.opv2v import precache_json
+    from coalign_tpu_torch.inference import evaluate_dataset, make_infer_fn
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.tools import noise_sweep, pose_graph_eval, run
+    from coalign_tpu_torch.utils.weights import load_pth
+
+    work = os.path.join(ROOT, "coalign_tpu_torch", "_build", "disk")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    fullscale = os.path.join(GOLDEN, "fullscale_multiscale.pth")
+    dev = torch.device("cuda")
+
+    # read: the tree written and read back
+    scenes = SyntheticScenes(**DISK_SCENES)
+    t = time.perf_counter()
+    tree = write_opv2v_fixture(os.path.join(work, "opv2v"), scenes,
+                               DISK_FRAMES_PER_SCENARIO, rsu_last=True)
+    write_s = time.perf_counter() - t
+    params = hypes_at("pointpillar_coalign", tree)
+    base, _ = build_dataset(params, train=False)
+    check(len(base) == DISK_SCENES["num_frames"], f"{len(base)} frames read")
+    box_err = 0.0
+    for i in range(len(base)):
+        frame, ref = base[i], scenes[i]
+        ids = [int(a["cav_id"]) for a in frame["agents"]]
+        check(len(ids) == DISK_SCENES["num_agents"] and ids[0] > 0
+              and ids[-1] < 0, f"frame {i}: agents {ids}")
+        for got, want in zip(frame["agents"], ref["agents"]):
+            check(np.array_equal(got["pose"], want["pose"])
+                  and np.array_equal(got["points"], want["points"]),
+                  f"frame {i}: agent {got['cav_id']} read back otherwise")
+        check(np.array_equal(frame["objects"]["ids"], ref["objects"]["ids"]),
+              f"frame {i}: object ids")
+        d = frame["objects"]["boxes"] - ref["objects"]["boxes"]
+        d[:, 6] = np.mod(d[:, 6] + np.pi, 2 * np.pi) - np.pi
+        box_err = max(box_err, float(np.abs(d).max()))
+    check(box_err <= 1e-4, f"boxes read back {box_err:.2e} off")
+    points = [len(a["points"]) for i in range(len(base))
+              for a in scenes[i]["agents"]]
+    phase("disk", step="read", frames=len(base),
+          agents=DISK_SCENES["num_agents"],
+          points_per_agent=[min(points), max(points)],
+          write_s=write_s, max_box_err=box_err, card=card)
+
+    # host: read and assemble, from the yamls and from the json side files
+    host = {}
+    for source in ("yaml", "json"):
+        if source == "json":
+            t = time.perf_counter()
+            host["json_files"] = precache_json(tree)
+            host["precache_s"] = time.perf_counter() - t
+        host[source] = {"read_ms": host_read_ms(params, None),
+                        **host_parse_ms(tree, len(base)),
+                        "read_assemble_b1_ms": host_read_ms(params, 1),
+                        "read_assemble_b4_ms": host_read_ms(params, 4)}
+    phase("disk", step="host", **host, serve_ms_per_frame=serve_ms,
+          host_over_serve=host["json"]["read_assemble_b1_ms"] / serve_ms,
+          card=card)
+
+    # train: config_generate, train, resume
+    full_yaml = os.path.join(work, "pointpillar_coalign_full.yaml")
+    cli(run.main, ["config_generate", "-y",
+                   os.path.join(HYPES, "pointpillar_coalign.yaml"),
+                   "--output", full_yaml])
+    train_dir = os.path.join(work, "train_run")
+    argv = ["train", "-y", full_yaml, "--root_dir", tree, "--model_dir",
+            train_dir, "--epochs", "1"]
+    t = time.perf_counter()
+    (_, trained), _ = cli(run.main, argv)
+    train_s = time.perf_counter() - t
+    saved = load_yaml(os.path.join(train_dir, "config.yaml"))
+    check(saved["model"]["args"]["pillar_vfe"]["pad_parity"] is False,
+          "the trained run's config has no pad_parity false")
+    for name in ("net_epoch1.pth", "scripts_backup.zip"):
+        check(os.path.exists(os.path.join(train_dir, name)), f"no {name}")
+    t = time.perf_counter()
+    _, text = cli(run.main, argv)
+    resume_s = time.perf_counter() - t
+    check('"resumed_from": "net_epoch1.pth"' in text, "train did not resume")
+    check(os.path.exists(os.path.join(train_dir, "net_epoch2.pth")),
+          "the resumed train saved no net_epoch2.pth")
+    phase("disk", step="train", train_s=train_s, resume_s=resume_s,
+          steps_per_epoch=len(base) // saved["train_params"]["batch_size"],
+          eval_after_train=trained, card=card)
+
+    # inference from a reference-style run directory
+    ref_dir = write_run_dir(os.path.join(work, "ref_run"), params, fullscale)
+    t = time.perf_counter()
+    (res, text), launches = counted_call(
+        cli, run.main, ["inference", "--model_dir", ref_dir, "--save_npy"])
+    cli_s = time.perf_counter() - t
+    check('"loaded_checkpoint": "net_epoch1.pth"' in text,
+          "the reference checkpoint was not loaded")
+    check(res["frames"] == len(base) and launches == res["frames"],
+          f"{launches} IoU launches over {res['frames']} frames")
+    ref_params = load_yaml(os.path.join(ref_dir, "config.yaml"))
+    ref_params["model"]["args"]["pillar_vfe"]["pad_parity"] = True
+    model = build_model(ref_params["model"])
+    load_pth(model, fullscale)
+    post = run.postprocess_cfg(ref_params)
+    anchors = generate_anchor_box(post["anchor_args"])
+    eval_base, eval_batcher = build_dataset(ref_params, train=False)
+    want = {k: v.cpu().numpy() for k, v in make_infer_fn(
+        model, anchors, post)(eval_batcher.assemble([eval_base[0]])).items()}
+    mask = want["mask"][0]
+    check(mask.sum() > 0, "frame 0 has no box")
+    iou, ds = match_box_sets(*npy_box_set(os.path.join(ref_dir, "npy"), 0),
+                             want["corners3d"][0][mask],
+                             want["scores"][0][mask])
+
+    def eval_from_disk():
+        _, batcher = build_dataset(ref_params, train=False)
+        return evaluate_dataset(model, batcher, eval_base, anchors, post)
+
+    eval_from_disk()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eval_from_disk()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    prof = profile_calls(eval_from_disk, reps=1)
+    phase("disk", step="inference", eval=res, cli_s=cli_s,
+          rotated_iou_launches=launches,
+          launches_per_eval_frame=launches / res["frames"],
+          frame0_boxes=int(mask.sum()), min_matched_iou=iou,
+          max_score_diff=ds, eval_frames_per_s=len(eval_base) / eval_s,
+          request_frames_per_s=1000.0 / serve_ms,
+          eval_loop_busy_share=prof["device_busy_share"],
+          eval_loop_profile={k: prof[k] for k in (
+              "call_wall_ms", "device_kernel_ms", "device_kernel_launches")},
+          card=card)
+    del model
+
+    # coalign: precalc, then inference corrected from its json
+    stage1_path = os.path.join(work, "stage1.pth")
+    torch.save(stage1_model(dev).state_dict(), stage1_path)
+    pc = dict(params, validate_dir=None, box_align_pre_calc={
+        "stage1_model": "point_pillar_uncertainty",
+        "stage1_model_config": STAGE1_ARGS,
+        "stage1_model_path": stage1_path,
+        "output_save_path": os.path.join(work, "precalc"),
+        "max_boxes": STAGE1_BOXES, "batch_size": TRAIN_BATCH})
+    pc_yaml = os.path.join(work, "precalc.yaml")
+    save_yaml(pc, pc_yaml)
+    (written, _), pc_launches = counted_call(
+        cli, run.main, ["precalc", "-y", pc_yaml])
+    n_batches = -(-len(base) // TRAIN_BATCH)
+    check(len(written) == 1 and pc_launches == n_batches,
+          f"precalc: {written}, {pc_launches} IoU launches")
+    ba = json.loads(json.dumps(params))
+    ba["box_align"]["val_result"] = written[0]
+    ba_dir = write_run_dir(os.path.join(work, "box_align_run"), ba,
+                           fullscale)
+    (ba_res, text), ba_launches = counted_call(
+        cli, run.main, ["inference", "--model_dir", ba_dir])
+    check('"box_align_json"' in text, "inference took no box_align json")
+    check(ba_launches == ba_res["frames"] == len(base),
+          f"{ba_launches} IoU launches over {ba_res['frames']} frames")
+    ba_params = load_yaml(os.path.join(ba_dir, "config.yaml"))
+    hook, _ = cli(run._box_align_hook, ba_params, dev)
+    _, batcher = build_dataset(ba_params, train=False)
+    corrected = 0
+    for i, batch in enumerate(batcher.batches(eval_base, 1, shuffle=False,
+                                              drop_last=False)):
+        moved = hook(batch, [i])["lidar_pose"].cpu().numpy()
+        corrected += int(not np.array_equal(moved, batch["lidar_pose"]))
+    with open(written[0]) as f:
+        boxes = [len(agent["box_poses"]) for frame in json.load(f).values()
+                 for agent in frame]
+    phase("disk", step="coalign", precalc_rotated_iou_launches=pc_launches,
+          launches_per_precalc_batch=pc_launches / n_batches,
+          stage1_boxes_per_agent=[min(boxes), max(boxes)],
+          eval_noisy=res, eval_corrected=ba_res,
+          launches_per_eval_frame=ba_launches / ba_res["frames"],
+          frames_corrected=corrected,
+          frames_abandoned=len(eval_base) - corrected, card=card)
+
+    # sweep: the noise sweep and the pose-graph evaluation command lines
+    sweep, _ = cli(noise_sweep.main, ["--model_dir", ref_dir, "--levels",
+                                      DISK_SWEEP_LEVELS])
+    s1_dir = write_run_dir(os.path.join(work, "stage1_run"),
+                           hypes_at("pointpillar_uncertainty", tree),
+                           stage1_path)
+    pge, _ = cli(pose_graph_eval.main, ["--model_dir", s1_dir])
+    check(pge["frames"] == len(base), f"pose graph over {pge['frames']}")
+    phase("disk", step="sweep",
+          noise_sweep={f"{k[0]:g}": v for k, v in sweep.items()},
+          pose_graph=pge, card=card)
+
+    # parity: the tiny reference run on CUDA and on the CPU
+    _, tiny_cuda = tiny_reference_run(work, device=dev)
+    tiny_cpu = shutil.copytree(tiny_cuda, tiny_cuda + "_cpu")
+    got, _ = cli(run.main, ["inference", "--model_dir", tiny_cuda,
+                            "--save_npy", "--device", "cuda"])
+    want, _ = cli(run.main, ["inference", "--model_dir", tiny_cpu,
+                             "--save_npy", "--device", "cpu"])
+    worst_iou, worst_ds = 1.0, 0.0
+    for i in range(want["frames"]):
+        iou, ds = match_box_sets(*npy_box_set(os.path.join(tiny_cuda, "npy"),
+                                              i),
+                                 *npy_box_set(os.path.join(tiny_cpu, "npy"),
+                                              i))
+        worst_iou, worst_ds = min(worst_iou, iou), max(worst_ds, ds)
+    for key in ("ap30", "ap50", "ap70"):
+        check(abs(got[key] - want[key]) <= 0.005,
+              f"tiny {key}: CUDA {got[key]:.4f}, CPU {want[key]:.4f}")
+    phase("disk", step="parity", cuda=got, cpu=want,
+          min_matched_iou=worst_iou, max_score_diff=worst_ds, card=card)
+    return {"launches_per_cli_eval_frame": launches / res["frames"],
+            "launches_per_precalc_batch": pc_launches / n_batches}
+
+
 def sweep_check(flagship, stage1, device=None) -> dict:
     """The noise_sweep phase: tools/noise_sweep.noise_sweep of the tiny
     flagship that train_ap trained (``flagship``) on the 4 frames of its
@@ -1832,6 +2266,10 @@ def main() -> int:
           late=late_ap, no=no_ap, **tiny)
     phase("noise_sweep", **sweep_check(tiny_flagship, stage1_tiny),
           card=card)
+    del tiny_flagship, stage1_tiny
+
+    # 15. the on-disk data path and the run CLI at full width
+    disk = disk_check(card, per_call)
 
     # the kernel on the main path's own input (one frame's 512 boxes), on
     # that input stacked 8 times (the NMS of a B=8 batch, one launch), on
@@ -1870,6 +2308,7 @@ def main() -> int:
         "launches_per_baseline_request": baseline_launches,
         "launches_per_stage1_train_step":
             stage1_train["launches_per_train_step"],
+        **disk,
         "max_abs_err": main["max_abs_err"],
         "max_abs_diff": main["max_abs_err"],
         "ms": main["kernel_ms"],

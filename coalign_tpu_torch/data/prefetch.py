@@ -42,13 +42,22 @@ def _copier(device: torch.device):
     return copy
 
 
-def prefetch(iterator, size: int = 2, device=None):
+def prefetch(iterator, size: int = 2, device=None, to_device: bool = True):
     """Yield the batches of ``iterator`` as dicts of tensors on ``device``
     (CUDA unless named), assembled and copied ``size`` batches ahead in a
     side thread. On CUDA the consumer's stream waits for each batch's copy
-    before it is yielded. An exception in the thread is raised here."""
-    dev = resolve_device(device)
-    copy = _copier(dev)
+    before it is yielded. With ``to_device`` False the batches stay the
+    host dicts that ``iterator`` yields, assembled ahead all the same (an
+    evaluation reads its gt on the host). An exception in the thread is
+    raised here."""
+    if to_device:
+        dev = resolve_device(device)
+        copy = _copier(dev)
+    else:
+        dev = None
+
+        def copy(batch):
+            return batch, None
     out_q: queue.Queue = queue.Queue(maxsize=max(1, size))
     errors: list[BaseException] = []
     stop = threading.Event()

@@ -12,13 +12,19 @@ the final fixed-size box tensors come back to the host for AP.
 
 from __future__ import annotations
 
+import itertools
+import os
+
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from coalign_tpu_torch.data.prefetch import prefetch
 from coalign_tpu_torch.postprocess.decode import post_process
 from coalign_tpu_torch.runtime import configure_cuda, resolve_device
 from coalign_tpu_torch.utils import eval_utils as E
+from coalign_tpu_torch.utils.bandwidth import (frame_comm_bytes,
+                                               summarize_bandwidth)
 from coalign_tpu_torch.utils.box_utils import boxes_to_corners_3d
 from coalign_tpu_torch.utils.nms import nms_rotated
 
@@ -203,4 +209,66 @@ def evaluate(infer, frames, batch_hook=None) -> dict:
             count += 1
     result = E.eval_final_results(stat)
     result["frames"] = count
+    return result
+
+
+def dump_detections_npy(dets: dict, batch: dict, out_dir: str, idx: int):
+    """Save one batch's detections (corners3d, scores, mask) and its padded
+    gt (gt_boxes, gt_mask) as ``<idx:05d>_<name>.npy`` files under
+    ``out_dir``, for offline visualization (ref inference_utils.py:176;
+    coalign_tpu/inference.py:188)."""
+    os.makedirs(out_dir, exist_ok=True)
+    arrays = {"pred_corners": dets["corners3d"], "pred_scores": dets["scores"],
+              "pred_mask": dets["mask"], "gt_boxes": batch["gt_boxes"],
+              "gt_mask": batch["gt_mask"]}
+    for name, value in arrays.items():
+        if isinstance(value, torch.Tensor):
+            value = value.cpu().numpy()
+        np.save(os.path.join(out_dir, f"{idx:05d}_{name}.npy"),
+                np.asarray(value))
+    return out_dir
+
+
+def evaluate_dataset(model, batcher, dataset, anchors, postprocess_cfg, *,
+                     batch_size: int = 1, max_frames: int | None = None,
+                     fusion_method: str = "intermediate",
+                     npy_dir: str | None = None, batch_hook=None,
+                     device=None) -> dict:
+    """The eval protocol over a dataset (coalign_tpu/inference.py:215-306;
+    ref tools/inference.py:40-227): ``batcher``'s batches of ``dataset`` in
+    order, through the infer fn of ``fusion_method``
+    (make_fusion_infer_fn) on ``device`` (CUDA unless named), and AP
+    against the batches' gt_boxes/gt_mask. Returns evaluate's {'ap30',
+    'ap50', 'ap70', 'frames'} and the bandwidth per frame
+    (utils/bandwidth.py).
+
+    Batches are assembled a step ahead in a side thread and stay on the
+    host (data/prefetch.py). ``batch_hook(batch, frame_ids)`` maps each
+    batch before inference (the offline CoAlign correction of
+    tools/run.py). ``max_frames`` stops after the batch that reaches it.
+    With ``npy_dir`` each batch's detections and gt are saved there
+    (dump_detections_npy), numbered by batch."""
+    infer = make_fusion_infer_fn(model, anchors, postprocess_cfg,
+                                 fusion_method, device=device)
+    max_num = int(postprocess_cfg.get("max_num", 100))
+    batches = prefetch(batcher.batches(dataset, batch_size, shuffle=False,
+                                       drop_last=False),
+                       size=2, to_device=False)
+    if max_frames:
+        batches = itertools.islice(batches, -(-max_frames // batch_size))
+    comm_bytes = []
+    batch_ids = itertools.count()
+
+    def infer_and_record(batch: dict) -> dict:
+        dets = infer(batch)
+        comm_bytes.append(frame_comm_bytes(fusion_method, batch, model=model,
+                                           max_num=max_num))
+        if npy_dir:
+            dump_detections_npy(dets, batch, npy_dir, next(batch_ids))
+        return dets
+
+    result = evaluate(infer_and_record,
+                      (dict(b, gt_corners=gt_corners(b)) for b in batches),
+                      batch_hook=batch_hook)
+    result.update(summarize_bandwidth(sum(comm_bytes), result["frames"]))
     return result

@@ -3,11 +3,21 @@
 Port of coalign_tpu/tools/pose_graph_eval.py (ref
 opencood/tools/pose_graph_evaluate.py:129): the translation (m) and
 rotation (degrees) error of every non-ego agent relative to the ego, before
-and after correction, with summary statistics. The numpy functions are
-copies of the JAX package's.
+and after correction, with summary statistics, and its command line
+(:83), which evaluates a stage-1 run directory:
+
+  python -m coalign_tpu_torch.tools.pose_graph_eval --model_dir <run> \
+      [--pos_std 0.4] [--rot_std 0.4] [--device cpu]
+
+The numpy functions are copies of the JAX package's.
 """
 
 from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
 
 import numpy as np
 
@@ -75,3 +85,55 @@ def evaluate_pose_graph(model, batcher, dataset, anchors, postprocess_cfg,
         return np.concatenate(xs) if xs else np.zeros(0)
     return {**{key: summarize(cat(t), cat(r))
                for key, (t, r) in errs.items()}, "frames": frames}
+
+
+def main(argv=None):
+    """Load a stage-1 (uncertainty) run directory (tools/run.
+    _load_model_dir), add pose noise, print the pose errors before and
+    after the pose graph and save them as ``eval_pose_graph.yaml`` in the
+    run directory (ref tools/pose_graph_evaluate.py). Returns
+    evaluate_pose_graph's result."""
+    from coalign_tpu_torch.config.yaml_utils import save_yaml
+    from coalign_tpu_torch.runtime import resolve_device
+    from coalign_tpu_torch.tools.run import (_load_model_dir,
+                                             _pose_graph_threads,
+                                             postprocess_cfg)
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--model_dir", required=True)
+    p.add_argument("--pos_std", type=float, default=0.4)
+    p.add_argument("--rot_std", type=float, default=0.4)
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--eval_frames", type=int, default=None)
+    p.add_argument("--root_dir", default=None)
+    p.add_argument("--device", default=None,
+                   help="torch device; CUDA when not given")
+    opt = p.parse_args(argv)
+    opt.device = resolve_device(opt.device)
+
+    def hook(params):
+        params = copy.deepcopy(params)
+        params["noise_setting"] = {"add_noise": True,
+                                   "args": {"pos_std": opt.pos_std,
+                                            "rot_std": opt.rot_std,
+                                            "pos_mean": 0, "rot_mean": 0}}
+        # the stage-1 detector trains on one agent a frame (late fusion),
+        # but the pose graph needs a frame's agents together with their
+        # noisy poses: evaluate on the intermediate batcher (ref
+        # pose_graph_evaluate.py builds the intermediate dataset)
+        params["fusion"] = dict(params["fusion"], core_method="intermediate")
+        return params
+
+    params, base, batcher, model, spec, dev = _load_model_dir(opt, hook)
+    _pose_graph_threads(dev)
+    res = evaluate_pose_graph(model, batcher, base, spec.anchors,
+                              postprocess_cfg(params),
+                              batch_size=opt.batch_size,
+                              max_frames=opt.eval_frames, device=dev)
+    print(json.dumps(res))
+    save_yaml(res, os.path.join(opt.model_dir, "eval_pose_graph.yaml"))
+    return res
+
+
+if __name__ == "__main__":
+    main()

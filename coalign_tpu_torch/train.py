@@ -11,6 +11,7 @@ under the reference's file names.
 from __future__ import annotations
 
 import os
+import re
 
 import torch
 from torch.profiler import record_function
@@ -53,13 +54,14 @@ def lr_factor(sched_cfg: dict | None, steps_per_epoch: int = 1000):
 
 
 def build_optimizer(params, opt_cfg: dict, sched_cfg: dict | None = None,
-                    steps_per_epoch: int = 1000):
+                    steps_per_epoch: int = 1000, start_step: int = 0):
     """(optimizer, scheduler) from the yaml ``optimizer`` and
     ``lr_scheduler`` subtrees (coalign_tpu/train.py:28). A ``weight_decay``
     selects AdamW, whose decay is applied to the weights apart from the
     gradient, as optax.adamw's is; without one, Adam. ``eps`` is the
     yaml's (1e-10 for the flagship). The scheduler is stepped once per
-    optimizer step (lr_factor)."""
+    optimizer step (lr_factor); a resumed run passes the steps it has
+    taken as ``start_step``, so that its schedule goes on from there."""
     lr = opt_cfg.get("lr", 1e-3)
     args = opt_cfg.get("args", {})
     wd = float(args.get("weight_decay", 0.0))
@@ -68,8 +70,9 @@ def build_optimizer(params, opt_cfg: dict, sched_cfg: dict | None = None,
         opt = torch.optim.AdamW(params, lr=lr, eps=eps, weight_decay=wd)
     else:
         opt = torch.optim.Adam(params, lr=lr, eps=eps)
+    factor = lr_factor(sched_cfg, steps_per_epoch)
     sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lr_factor(sched_cfg, steps_per_epoch))
+        opt, lambda count: factor(count + start_step))
     return opt, sched
 
 
@@ -135,6 +138,35 @@ def save_checkpoint(model, ckpt_dir: str, epoch: int,
                 os.remove(os.path.join(ckpt_dir, name))
     torch.save(model.state_dict(), path)
     return path
+
+
+_EPOCH_FILE = re.compile(r"^net_epoch(\d+)\.pth$")
+_BESTVAL_FILE = re.compile(r"^net_epoch_bestval_at(\d+)\.pth$")
+
+
+def _numbered(ckpt_dir: str, pattern) -> list:
+    """(epoch, path) of the files of ``ckpt_dir`` that ``pattern`` names,
+    in numeric order of the epoch (net_epoch9 before net_epoch10)."""
+    found = [(int(m.group(1)), os.path.join(ckpt_dir, name))
+             for name in os.listdir(ckpt_dir)
+             if (m := pattern.match(name))]
+    return sorted(found)
+
+
+def latest_checkpoint(ckpt_dir: str):
+    """(epoch, path) of the numerically latest ``net_epoch{N}.pth`` in
+    ``ckpt_dir``, where a run resumes, or None."""
+    found = _numbered(ckpt_dir, _EPOCH_FILE)
+    return found[-1] if found else None
+
+
+def inference_checkpoint(ckpt_dir: str):
+    """The checkpoint to evaluate, as the reference's load_saved_model
+    picks it (ref train_utils.py:29-74): ``net_epoch_bestval_at{N}.pth``
+    when there is one, else the numerically latest ``net_epoch{N}.pth``;
+    (epoch, path), or None."""
+    best = _numbered(ckpt_dir, _BESTVAL_FILE)
+    return best[-1] if best else latest_checkpoint(ckpt_dir)
 
 
 def load_checkpoint(model, path: str):

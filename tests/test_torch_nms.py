@@ -66,3 +66,52 @@ def test_all_invalid_keeps_nothing():
     _, keep = nms_rotated(corners, scores,
                           torch.zeros(1, 16, dtype=torch.bool), 0.15)
     assert not keep.any()
+
+
+def test_post_process_cap_matches_jax():
+    """Fault 8, decided (ROADMAP §3): the port keeps the JAX package's cap.
+
+    60 separated objects each give two overlapping candidates (the two
+    anchors of one cell, 0 and 90 degrees: IoU 0.26 against the 0.15 NMS
+    threshold), ranked in pairs. The NMS keeps one of each pair: 60
+    survivors. Both packages then cut the ranked candidates, not the
+    survivors, to ``max_keep`` = 100: the first 100 candidates hold 50
+    pairs, so both keep 50 of the 60 survivors. That gather was narrowed
+    to the first ``max_keep`` ranked rows as a workaround for a fault of
+    the TPU worker (docs/PARITY.md:596-601); the port is held to the JAX
+    package, so it keeps the cut. With a cap above the candidate count
+    both keep all 60."""
+    from coalign_tpu.postprocess.decode import post_process_frame
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.postprocess.decode import post_process
+
+    rng = [-40.0, -40.0, -3.0, 40.0, 40.0, 1.0]
+    anchors = generate_anchor_box(
+        {"W": 200, "H": 200, "l": 3.9, "w": 1.6, "h": 1.56, "r": [0, 90],
+         "vw": 0.4, "vh": 0.4, "feature_stride": 2, "cav_lidar_range": rng})
+    h, w, a = anchors.shape[:3]                           # (100, 100, 2)
+    cls = np.full((a, h, w), -10.0, np.float32)
+    cells = [(r, c) for r in range(6, 94, 8) for c in range(6, 94, 8)][:60]
+    for i, (r, c) in enumerate(cells):
+        cls[0, r, c] = 3.0 - 0.02 * i         # each pair ranked together
+        cls[1, r, c] = 3.0 - 0.02 * i - 0.01
+    reg = np.zeros((7 * a, h, w), np.float32)             # boxes = anchors
+    dirs = np.zeros((2 * a, h, w), np.float32)
+    kw = dict(score_threshold=0.2, nms_threshold=0.15, gt_range=rng)
+    kept = {}
+    for cap in (100, 512):
+        got = post_process(torch.from_numpy(cls)[None],
+                           torch.from_numpy(reg)[None],
+                           torch.from_numpy(anchors), torch.eye(4)[None],
+                           torch.from_numpy(dirs)[None], max_keep=cap, **kw)
+        want = post_process_frame(
+            cls.transpose(1, 2, 0), reg.transpose(1, 2, 0), anchors,
+            np.eye(4, dtype=np.float32), dirs.transpose(1, 2, 0),
+            max_keep=cap, **kw)
+        mask = got["mask"][0].numpy()
+        np.testing.assert_array_equal(mask, np.asarray(want["mask"]))
+        np.testing.assert_allclose(got["corners3d"][0].numpy()[mask],
+                                   np.asarray(want["corners3d"])[mask],
+                                   rtol=0, atol=1e-4)
+        kept[cap] = int(mask.sum())
+    assert kept == {100: 50, 512: 60}
