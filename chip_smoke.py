@@ -5,7 +5,9 @@
 Phases, each printing one JSON line with its elapsed seconds:
   1. card    the GPU's name and power limit (nvidia-smi);
   2. build   nvcc builds the rotated-IoU kernel into coalign_tpu_torch/_build/
-             and reports ptxas's registers, stack frame and spills;
+             and reports ptxas's registers, stack frame and spills; g++
+             builds the host data plane (native/data_plane.cpp) there at
+             the same time;
   3. kernel  the kernel against its plain PyTorch version on the seeded
              cases of kernel_cases(), with the share of pairs that the
              kernel's separation cull clears;
@@ -84,9 +86,26 @@ Phases, each printing one JSON line with its elapsed seconds:
              config_generate, train and a resumed train on the tree; run
              inference of a reference-style run directory (frame 0 against
              make_infer_fn, 1 IoU launch a frame, frames/s from disk, the
-             loop's busy share); run precalc and the inference it corrects;
+             loop's busy share); the C++ data plane against numpy on the
+             tree (exact parse, host ms a frame, the eval loop on each path,
+             DeviceBatchCache's second epoch from the card); run precalc
+             and the inference it corrects;
              the noise_sweep and pose_graph_eval command lines; the tiny
              reference run on CUDA against the CPU.
+ 16. fusions_rest   one line for each of pointpillar_where2comm, _mash and
+             _v2vnet_robust (the OPV2V yamls) and the deformable fusion on
+             pointpillar_selfatt.yaml's args (no yaml sets it), as the
+             baselines phase: CUDA against the CPU (maps, Where2comm's
+             mask with its single cls bias shifted so that half the
+             neighbours' pixels are sent, MASH's corr_vol,
+             robust V2VNet's pose outputs, the box set), 1 IoU launch a
+             request, peak memory, 20 timed requests and a profile.
+ 17. train_rest   B=4 full-width train steps of robust V2VNet at stages 0,
+             1 and 2 (the frozen parameters bit-identical after the
+             steps), MASH, Where2comm and DiscoNet's KD step (student and
+             frozen teacher): ms, peak memory, loss terms; rest_parity,
+             their tiny twins' CUDA steps against the CPU (train_parity's
+             bounds).
 Then one JSON line describing each kernel (with its launches on each
 path above), timed at five shapes (the main
 path's NMS input; that input stacked 8 times, a B=8 batch's one launch; 8
@@ -621,19 +640,23 @@ def device_ms(fn, reps: int, name: str | None = None):
     (CUPTI): the time of the kernels whose name contains ``name`` (all of
     them when None), summed over ``reps`` calls and divided by ``reps``.
     Unlike CUDA events around a loop of calls, this leaves out the host's
-    launch overhead. None when the profiler recorded no such kernel."""
+    launch overhead. None when three profiles in a row recorded no such
+    kernel (now and then one records no device activity at all)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and (name is None or name in e.key))
-    return total_us / reps / 1e3 if total_us > 0 else None
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and (name is None or name in e.key))
+        if total_us > 0:
+            return total_us / reps / 1e3
+    return None
 
 
 def iou_ops(c1: torch.Tensor, c2: torch.Tensor) -> float:
@@ -949,19 +972,23 @@ def _tiny_stage1_batch() -> dict:
 
 
 def _one_sgd_step(device: str, dtype: torch.dtype, batch: dict,
-                  model_cfg: dict = E2E_FLAGSHIP, loss_cfg: dict = E2E_LOSS):
+                  model_cfg: dict = E2E_FLAGSHIP, loss_cfg: dict = E2E_LOSS,
+                  teacher_cfg: dict | None = None):
     """One make_train_step of a tiny model (the flagship by default; seed
-    0) with SGD (lr 1e-2) on ``device`` in ``dtype``: (loss terms,
-    gradients, state dict after the step), on the CPU in float64."""
+    0) with SGD (lr 1e-2) on ``device`` in ``dtype``, with a frozen teacher
+    of ``teacher_cfg`` (seed 1) where given: (loss terms, gradients, state
+    dict after the step), on the CPU in float64."""
     from coalign_tpu_torch.loss import build_loss
     from coalign_tpu_torch.models.zoo import build_model
     from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
     from coalign_tpu_torch.train import make_train_step
     model = build_model(model_cfg, device=device, seed=0).to(dtype)
+    teacher = (None if teacher_cfg is None else
+               build_model(teacher_cfg, device=device, seed=1).to(dtype))
     opt = torch.optim.SGD(model.parameters(), lr=1e-2)
     terms = make_train_step(model, build_loss(loss_cfg), make_anchor_spec(
         E2E_ANCHORS, E2E_POSTPROCESS["target_args"]), opt,
-        device=device)(batch)
+        device=device, teacher=teacher)(batch)
     return ({k: float(v) for k, v in terms.items()},
             {k: p.grad.detach().double().cpu()
              for k, p in model.named_parameters()},
@@ -969,22 +996,41 @@ def _one_sgd_step(device: str, dtype: torch.dtype, batch: dict,
              if v.is_floating_point()})
 
 
-def _max_rel(got: dict, want: dict) -> list:
-    """[largest |got - want| over its tensor's largest |want|, its key]."""
+# parameters whose gradient is 0 in exact arithmetic and ~1e-17 in float64
+# on either device: the bias of a conv right before a batch norm
+# (DiscoNet's pixel-weight layer, in the KD student). Started at 0, they
+# stay ~1e-19 after an SGD step. train_parity holds their gradient and
+# value by the absolute error, within ZERO_GRAD_ATOL in float64.
+ZERO_GRADS = tuple(f"fusion_net.pixel_weight_layer.conv1_{i}.bias"
+                   for i in (1, 2, 3))
+ZERO_GRAD_ATOL = 1e-12
+
+
+def _max_rel(got: dict, want: dict, skip=()) -> list:
+    """[largest |got - want| over its tensor's largest |want|, its key]
+    over the keys of ``want`` not in ``skip``."""
     return max([float((got[k] - w).abs().max() / w.abs().max().clamp_min(
-        1e-30)), k] for k, w in want.items())
+        1e-30)), k] for k, w in want.items() if k not in skip)
+
+
+def _small_refs(want: dict) -> list:
+    """The keys of ``want`` whose largest magnitude is below 1e-9."""
+    return sorted(k for k, w in want.items() if float(w.abs().max()) < 1e-9)
 
 
 def train_parity(batch: dict | None = None, model_cfg: dict = E2E_FLAGSHIP,
-                 loss_cfg: dict = E2E_LOSS) -> dict:
+                 loss_cfg: dict = E2E_LOSS,
+                 teacher_cfg: dict | None = None) -> dict:
     """The CUDA step against the CPU step on the same seeded weights and
     batch (by default the tiny flagship on _tiny_parity_batch). In
     float32, the loss terms within 1e-4 relative and the running
     statistics after the step within 1e-4 of each tensor's largest
     magnitude: summation orders and grid_sample's atomics differ. In
     float64, the loss terms, the gradients and the whole state after the
-    step (parameters after one SGD step, running statistics) within 1e-6:
-    the labels stay float32 (assigned from float32 gt boxes on each
+    step (parameters after one SGD step, running statistics) within 1e-6
+    of each tensor's largest magnitude, but ZERO_GRADS within
+    ZERO_GRAD_ATOL absolute; the keys whose gradient is below 1e-9 are
+    listed (small_ref_grads). The labels stay float32 (assigned from float32 gt boxes on each
     device), and their regression targets differ by an ulp between the
     devices' float32 log and trigonometry. The float32 gradients (and so
     the parameters after the step) are reported, not held: two float32
@@ -996,22 +1042,32 @@ def train_parity(batch: dict | None = None, model_cfg: dict = E2E_FLAGSHIP,
     out = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-6)):
         cpu_terms, cpu_grads, cpu_state = _one_sgd_step(
-            "cpu", dtype, batch, model_cfg, loss_cfg)
+            "cpu", dtype, batch, model_cfg, loss_cfg, teacher_cfg)
         terms, grads, state = _one_sgd_step("cuda", dtype, batch, model_cfg,
-                                            loss_cfg)
+                                            loss_cfg, teacher_cfg)
         name = str(dtype).split(".")[-1]
         running = [k for k in cpu_state if "running_" in k]
+        zero = [k for k in ZERO_GRADS if k in cpu_grads]
         errs = {"loss_terms": max([abs(terms[k] - v) / abs(v), k]
                                   for k, v in cpu_terms.items()),
                 "running_stats": _max_rel(
                     state, {k: cpu_state[k] for k in running}),
-                "grads": _max_rel(grads, cpu_grads),
-                "state": _max_rel(state, cpu_state)}
+                "grads": _max_rel(grads, cpu_grads, zero),
+                "state": _max_rel(state, cpu_state, zero)}
         held = (["loss_terms", "running_stats"] if dtype == torch.float32
                 else list(errs))
         for key in held:
             check(errs[key][0] <= tol, f"{name} {key}: {errs[key]}")
+        abs_err = {k: max(float((grads[k] - cpu_grads[k]).abs().max()),
+                          float((state[k] - cpu_state[k]).abs().max()))
+                   for k in zero}
+        if dtype == torch.float64:
+            for key, err in abs_err.items():
+                check(err <= ZERO_GRAD_ATOL, f"{name} {key}: {err:.2e}")
         out[name] = {"bound": tol, "held": held, "rel_err": errs,
+                     "zero_grads_abs_err": abs_err,
+                     "zero_grads_bound": ZERO_GRAD_ATOL,
+                     "small_ref_grads": _small_refs(cpu_grads),
                      "terms": terms}
     return out
 
@@ -1478,26 +1534,100 @@ def baseline_yaml(name: str) -> tuple:
     return y["model"], post
 
 
-def baseline_model(name: str, device, state_dict: dict):
-    """The model of the yaml ``name`` at full width on ``device`` (seed 0),
+def baseline_model(model_cfg: dict, device, state_dict: dict):
+    """The model of ``model_cfg`` at full width on ``device`` (seed 0),
     every weight it shares by key with fullscale_multiscale.pth
     (``state_dict``) from that checkpoint: all of them for the max and att
-    fusions, all but the learned fusion_net's for the others. Returns (the
-    model, the number of seeded fusion_net tensors)."""
+    fusions, all but the learned fusion_net's for the others; Where2comm's
+    single_heads are the checkpoint's heads. Returns (the model, the number
+    of seeded fusion_net tensors)."""
     from coalign_tpu_torch.models.zoo import build_model
-    model = build_model(baseline_yaml(name)[0], device=device, seed=0)
+    model = build_model(model_cfg, device=device, seed=0)
+    if hasattr(model, "single_heads"):
+        state_dict = {**state_dict, **{
+            "single_heads." + k: v for k, v in state_dict.items()
+            if k.startswith(("cls_head.", "reg_head.", "dir_head."))}}
     missing, unexpected = model.load_state_dict(state_dict, strict=False)
     check(not unexpected and all(k.startswith("fusion_net.")
                                  for k in missing),
-          f"{name} checkpoint keys: missing {missing[:4]}, unexpected "
-          f"{unexpected[:4]}")
+          f"{model_cfg['core_method']} checkpoint keys: missing "
+          f"{missing[:4]}, unexpected {unexpected[:4]}")
     return model, len(missing)
 
 
-def baseline_parity(name: str, state_dict: dict) -> tuple:
-    """The yaml ``name``'s model on the recording's 5 agents, CUDA against the CPU
-    (a full-width forward takes 2-17 s there on an H100 host's 8 cores):
-    head maps within 2e-3 (the full phase's bound); the same box set at
+def where2comm_bias_shift(model, batch: dict) -> float:
+    """The shift of Where2comm's single cls bias at which half of the
+    valid neighbours' pixels of ``batch`` are sent, by bisection on the
+    card's single cls logits of the frame (a shift of the bias moves every
+    logit by as much). With the checkpoint's heads every pixel passes the
+    0.01 threshold at full width, and the mask would be all ones."""
+    from coalign_tpu_torch.inference import to_device
+    with torch.no_grad():
+        logits = model(to_device(batch, next(model.parameters()).device))[
+            "cls_preds_single"]
+        agents = torch.as_tensor(batch["agent_mask"], device=logits.device)
+        logits = logits.reshape(agents.shape + logits.shape[1:])
+        comm = model.fusion_net.comm
+
+        def share(shift: float) -> float:
+            conf = comm.confidence(logits + shift)[:, 1:][agents[:, 1:]]
+            return float((conf > comm.threshold).float().mean())
+        lo, hi = -30.0, 30.0
+        for _ in range(40):
+            mid = (lo + hi) / 2
+            lo, hi = (mid, hi) if share(mid) < 0.5 else (lo, mid)
+    return (lo + hi) / 2
+
+
+def where2comm_mask_check(name: str, cpu_model, batch: dict, masks: dict,
+                          cpu_single, single_err: float) -> dict:
+    """Where2comm's transmission mask, the card's against the CPU's own
+    (``masks``: each device's (mask, comm_rate) from its forward). A pixel
+    may be sent by one and not the other only where the CPU's smoothed
+    confidence lies within what the single maps' measured error allows of
+    the threshold: the kernel's sum times sigmoid's largest slope (1/4)
+    times that error. comm_rate within 1e-6 plus the share of such pixels;
+    the sent share of the neighbours' pixels well between 0 and 1."""
+    comm = cpu_model.fusion_net.comm
+    agents = torch.as_tensor(batch["agent_mask"])
+    with torch.no_grad():
+        conf = comm.confidence(cpu_single.reshape(
+            agents.shape + cpu_single.shape[1:]))
+    (cuda_mask, cuda_rate), (cpu_mask, cpu_rate) = (
+        [x.cpu() for x in masks[dev]] for dev in ("cuda", "cpu"))
+    valid = agents[:, :, None, None, None].expand_as(cpu_mask)
+    differ = (cuda_mask != cpu_mask) & valid
+    flips = int(differ.sum())
+    margin = float(comm.kernel.sum()) * 0.25 * single_err
+    near = float((conf[differ] - comm.threshold).abs().max()) if flips else 0.0
+    check(near <= margin, f"{name}: {flips} pixels sent by one device only, "
+          f"{near:.2e} from the threshold (allowed {margin:.2e})")
+    pixels = int(np.prod(conf.shape[-2:]))
+    rate_err = abs(float(cuda_rate) - float(cpu_rate))
+    check(rate_err <= 1e-6 + flips / (int(agents.sum()) * pixels),
+          f"{name} comm_rate: CUDA vs CPU {rate_err:.2e}, {flips} flips")
+    neighbours = valid[:, 1:]
+    sent = {dev: int(m[:, 1:][neighbours].sum())
+            for dev, m in (("cuda", cuda_mask), ("cpu", cpu_mask))}
+    share = sent["cuda"] / (int(agents[:, 1:].sum()) * pixels)
+    check(0.05 < share < 0.95, f"{name}: sent share {share:.4f}")
+    return {"comm_rate": float(cuda_rate), "comm_rate_err": rate_err,
+            "sent_pixels": sent["cuda"], "sent_pixels_cpu": sent["cpu"],
+            "neighbor_pixels": int(agents[:, 1:].sum()) * pixels,
+            "sent_share": share, "pixels_sent_by_one_device": flips,
+            "their_max_dist_to_threshold": near,
+            "allowed_dist_to_threshold": margin}
+
+
+def baseline_parity(name: str, state_dict: dict,
+                    config: tuple | None = None) -> tuple:
+    """The yaml ``name``'s model (or ``config``'s, a (model config,
+    post-processing args) pair) on the recording's 5 agents, CUDA against
+    the CPU (a full-width forward takes 2-17 s there on an H100 host's 8
+    cores): head maps within 2e-3 (the full phase's bound); Where2comm's
+    single cls bias shifted so that about half the neighbours' pixels are
+    sent (where2comm_bias_shift), the CPU fusing with the card's mask, and
+    the mask held by where2comm_mask_check; the same box set at
     match_box_sets' bounds (IoU > 0.95, scores within 1e-3) through
     make_infer_fn at the yaml's score threshold, lowered until
     BASELINE_MIN_BOXES boxes remain on the CPU (parity on an empty set
@@ -1509,21 +1639,43 @@ def baseline_parity(name: str, state_dict: dict) -> tuple:
     from coalign_tpu_torch.postprocess.decode import post_process
     from coalign_tpu_torch.runtime import configure_cuda
     configure_cuda()
-    model_cfg, post = baseline_yaml(name)
+    model_cfg, post = config or baseline_yaml(name)
     batch, _ = fullscale_batch()
     anchors = generate_anchor_box(FULL_ANCHORS)
-    built = {dev: baseline_model(name, dev, state_dict)
+    built = {dev: baseline_model(model_cfg, dev, state_dict)
              for dev in ("cuda", "cpu")}
     models = {dev: model for dev, (model, _) in built.items()}
+    extra, masks, hooks = {}, {}, []
+    if hasattr(models["cuda"], "single_heads"):
+        shift = where2comm_bias_shift(models["cuda"], batch)
+        for model in models.values():
+            with torch.no_grad():
+                model.single_heads.cls_head.bias.add_(shift)
+        extra["single_cls_bias_shift"] = shift
+
+        def keep(dev):
+            def hook(module, inputs, output):
+                masks[dev] = output
+                if dev == "cpu":      # the CPU fuses with the card's mask
+                    return tuple(x.cpu() for x in masks["cuda"])
+            return hook
+        hooks = [models[dev].fusion_net.comm.register_forward_hook(
+            keep(dev)) for dev in ("cuda", "cpu")]
     with torch.no_grad():
+        cuda_maps = models["cuda"](to_device(batch, "cuda"))
         t = time.perf_counter()
         cpu_maps = models["cpu"](to_device(batch, "cpu"))
         cpu_s = time.perf_counter() - t
-        cuda_maps = models["cuda"](to_device(batch, "cuda"))
+    for hook in hooks:
+        hook.remove()
     map_err = {k: (cuda_maps[k].cpu() - v).abs().max().item()
-               for k, v in cpu_maps.items()}
+               for k, v in cpu_maps.items() if k != "comm_rate"}
     for key, err in map_err.items():
         check(err < 2e-3, f"{name} {key}: CUDA vs CPU {err:.2e}")
+    if masks:
+        extra.update(where2comm_mask_check(
+            name, models["cpu"], batch, masks,
+            cpu_maps["cls_preds_single"], map_err["cls_preds_single"]))
 
     # the CPU's boxes: make_infer_fn's post-processing on the CPU maps
     _, cpu_anchors, kwargs = infer_setup(models["cpu"], anchors,
@@ -1544,14 +1696,15 @@ def baseline_parity(name: str, state_dict: dict) -> tuple:
     infer = make_infer_fn(models["cuda"], anchors, cfg)
     counts, worst_iou, worst_ds = same_box_sets(infer(batch), ref)
     return ({"core_method": model_cfg["core_method"],
-             "fusion": model_cfg["args"]["fusion_method"],
+             "fusion": model_cfg["args"].get("fusion_method"),
              "seeded_fusion_tensors": built["cpu"][1],
              "cpu_forward_s": cpu_s,
              "score_threshold": threshold,
              "yaml_score_threshold":
                  post["target_args"]["score_threshold"],
              "map_max_abs_err": map_err, "boxes": counts[0],
-             "min_matched_iou": worst_iou, "max_score_diff": worst_ds},
+             "min_matched_iou": worst_iou, "max_score_diff": worst_ds,
+             **extra},
             infer, batch)
 
 
@@ -1603,6 +1756,246 @@ def baseline_recordings() -> dict:
             check(err <= 2e-4, f"baseline_{fusion} {key}: {err:.2e} from "
                   "the recording")
     return out
+
+
+# The rest of the PointPillars fusions at full width: three OPV2V yamls of
+# the repo (read in place) and the deformable fusion, which no yaml sets,
+# on pointpillar_selfatt.yaml's args with fusion_method deform.
+FUSIONS_REST = ("pointpillar_where2comm", "pointpillar_mash",
+                "pointpillar_v2vnet_robust", "deform")
+DEFORM_ARGS_FROM = "pointpillar_selfatt"
+REST_TRAIN_STEPS = (2, 5)                 # warm-up, timed
+
+
+def rest_config(name: str) -> tuple:
+    """(model config, post-processing args) of a FUSIONS_REST entry."""
+    if name != "deform":
+        return baseline_yaml(name)
+    model_cfg, post = baseline_yaml(DEFORM_ARGS_FROM)
+    return ({"core_method": "point_pillar_deform_transformer",
+             "args": {**model_cfg["args"], "fusion_method": "deform"}}, post)
+
+
+def fusions_rest_check(card) -> dict:
+    """The fusions_rest phase, one line a FUSIONS_REST entry, as
+    baselines_check: baseline_parity's CUDA against the CPU (maps within
+    2e-3, Where2comm's half-sent mask and comm_rate as
+    where2comm_mask_check holds them,
+    MASH's corr_vol and robust V2VNet's pose outputs with the maps, the
+    same box set), one counted request (exactly 1 IoU launch), its peak
+    memory, 20 timed requests and a profile. Returns each entry's launches
+    a request."""
+    state_dict = torch.load(os.path.join(GOLDEN, "fullscale_multiscale.pth"),
+                            map_location="cpu", weights_only=True)
+    launches_per_request = {}
+    for name in FUSIONS_REST:
+        config = rest_config(name)
+        fields, infer, batch = baseline_parity(name, state_dict, config)
+        torch.cuda.reset_peak_memory_stats()
+        _, launches = counted_call(infer, batch)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(launches == 1, f"{launches} IoU launches in a {name} request")
+        launches_per_request[name] = launches
+        note = ({"yaml": None, "args_from": f"{DEFORM_ARGS_FROM}.yaml",
+                 "why": "no yaml of the repo sets point_pillar_deform_"
+                        "transformer"} if name == "deform"
+                else {"yaml": f"coalign_tpu/hypes_yaml/opv2v/{name}.yaml"})
+        phase("fusions_rest", config=name, **note, **fields,
+              rotated_iou_launches=launches, peak_mem_gib=peak,
+              **timed_requests(infer, batch), card=card)
+        del infer
+        torch.cuda.empty_cache()
+    return launches_per_request
+
+
+def _rest_train_setup(name: str, batch_size: int):
+    """(model, loss, optimizer, batch) of a train_rest entry at full width:
+    the yaml's model from scratch (seed 0, no pad_parity), its loss and
+    optimizer, on B = ``batch_size`` synthetic frames of TRAIN_SCENES with
+    the yaml's pose noise. ``name`` is a yaml of FUSIONS_REST, robust
+    V2VNet as ``..._stage{s}`` (the stage's loss and staged optimizer), or
+    ``kd`` (pointpillar_disconet.yaml's DiscoNet student and a frozen
+    early-fusion teacher with the flagship checkpoint's weights)."""
+    from coalign_tpu_torch.config.yaml_utils import load_yaml
+    from coalign_tpu_torch.data.batch import (IntermediateFusionBatcher,
+                                              KDFusionBatcher)
+    from coalign_tpu_torch.data.prefetch import prefetch
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    from coalign_tpu_torch.loss import build_loss
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.tools.train_robust import staged_optimizer
+    from coalign_tpu_torch.train import build_optimizer
+    yaml_name, stage = name, None
+    if "_stage" in name:
+        yaml_name, stage = name.split("_stage")[0], int(name[-1])
+    if name == "kd":
+        yaml_name = "pointpillar_disconet"
+    y = load_yaml(os.path.join(HYPES, f"{yaml_name}.yaml"))
+    args = y["model"]["args"]
+    args["pillar_vfe"].pop("pad_parity", None)
+    model_cfg, loss_cfg = y["model"], y["loss"]
+    teacher = None
+    if name == "kd":
+        model_cfg = {"core_method": "point_pillar_disconet", "args": args}
+        loss_cfg = {"core_method": "point_pillar_disconet_loss",
+                    "args": {**loss_cfg["args"], "kd": {"weight": 1.0}}}
+        teacher = build_model({"core_method":
+                               "point_pillar_disconet_teacher",
+                               "args": {**args, "pillar_vfe": {
+                                   **args["pillar_vfe"],
+                                   "pad_parity": True}}}, seed=1)
+        missing, unexpected = teacher.load_state_dict(torch.load(
+            os.path.join(GOLDEN, "fullscale_multiscale.pth"),
+            map_location="cpu", weights_only=True), strict=False)
+        check(not missing and not unexpected,
+              f"teacher keys: {missing[:3]} {unexpected[:3]}")
+    if stage is not None:
+        loss_cfg = {**loss_cfg, "args": {**loss_cfg["args"], "robust": {
+            **loss_cfg["args"].get("robust", {}), "stage": stage}}}
+    model = build_model(model_cfg, seed=0)
+    if stage is not None:
+        opt, sched = staged_optimizer(model, stage, y["optimizer"])
+    else:
+        opt, sched = build_optimizer(model.parameters(), y["optimizer"])
+    scenes = SyntheticScenes(num_frames=batch_size, **TRAIN_SCENES)
+    ns = y.get("noise_setting", {})
+    noise = ns.get("args", {}) if ns.get("add_noise") else {}
+    cls = KDFusionBatcher if name == "kd" else IntermediateFusionBatcher
+    host = cls(**TRAIN_BATCHER, pos_std=noise.get("pos_std", 0.0),
+               rot_std=noise.get("rot_std", 0.0)).assemble(
+        [scenes[i] for i in range(batch_size)])
+    (batch,) = list(prefetch(iter([host])))
+    return model, build_loss(loss_cfg), opt, sched, teacher, batch
+
+
+REST_TRAIN = ("pointpillar_v2vnet_robust_stage0",
+              "pointpillar_v2vnet_robust_stage1",
+              "pointpillar_v2vnet_robust_stage2", "pointpillar_mash",
+              "pointpillar_where2comm", "kd")
+
+
+def train_rest(card) -> dict:
+    """The train_rest phase, one line a REST_TRAIN entry (_rest_train_setup):
+    REST_TRAIN_STEPS warm-up and timed steps (CUDA events) at B = 4, full
+    width; ms a step, peak memory, the first and last loss terms, every
+    term finite, no IoU launch in a step. Robust V2VNet's stages: the
+    parameters the stage freezes bit-identical after the steps, the
+    others and every batch norm's statistics moved. A robust step that
+    does not fit at B = 4 runs at B = 2, and its line says so. Returns the
+    IoU launches a train step."""
+    from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
+    from coalign_tpu_torch.tools.train_robust import stage_param_labels
+    from coalign_tpu_torch.train import make_train_step
+    spec = make_anchor_spec(FULL_ANCHORS, YAML_TARGETS)
+    launches = {}
+    for name in REST_TRAIN:
+        for batch_size in (TRAIN_BATCH, 2):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                model, loss, opt, sched, teacher, batch = _rest_train_setup(
+                    name, batch_size)
+                before = {k: v.clone() for k, v in model.state_dict().items()}
+                step = make_train_step(model, loss, spec, opt, sched,
+                                       teacher=teacher)
+                warm, timed = REST_TRAIN_STEPS
+
+                def run():
+                    terms = [step(batch) for _ in range(warm)]
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    terms += [step(batch) for _ in range(timed)]
+                    end.record()
+                    return terms, start, end
+
+                (terms, start, end), n_iou = counted_call(run)
+                break
+            except torch.cuda.OutOfMemoryError:
+                check("robust" in name and batch_size == TRAIN_BATCH,
+                      f"{name} does not fit at B={batch_size}")
+                model = opt = step = batch = teacher = None
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(all(np.isfinite(float(v)) for t in terms for v in t.values()),
+              f"{name}: a loss term is not finite")
+        check(n_iou == 0, f"{name}: {n_iou} IoU launches in a train step")
+        fields = {}
+        if "_stage" in name:
+            labels = stage_param_labels(model, int(name[-1]))
+            state = model.state_dict()
+            moved = {k: not torch.equal(state[k], before[k]) for k in labels}
+            frozen = [k for k, v in labels.items() if v == "freeze"]
+            check(not any(moved[k] for k in frozen),
+                  f"{name}: a frozen parameter moved")
+            check(all(moved[k] for k, v in labels.items() if v == "train"),
+                  f"{name}: a trained parameter did not move")
+            stats = [k for k in state if k.endswith("running_mean")]
+            check(all(not torch.equal(state[k], before[k]) for k in stats),
+                  f"{name}: a running mean did not move")
+            check(("pose_loss" in terms[-1]) == (int(name[-1]) >= 1),
+                  f"{name}: pose loss {sorted(terms[-1])}")
+            fields = {"frozen_params": len(frozen),
+                      "trained_params": len(labels) - len(frozen),
+                      "frozen_bit_identical": True}
+        if name == "kd":
+            fields["teacher"] = "fullscale_multiscale.pth, frozen"
+        ms = start.elapsed_time(end) / REST_TRAIN_STEPS[1]
+        launches[name] = n_iou
+        phase("train_rest", config=name, batch=batch_size,
+              note=None if batch_size == TRAIN_BATCH else
+              f"does not fit at B={TRAIN_BATCH}",
+              timed_steps=REST_TRAIN_STEPS[1], ms_per_step=ms,
+              frames_per_s=batch_size * 1000.0 / ms, peak_mem_gib=peak,
+              first_step={k: float(v) for k, v in terms[0].items()},
+              last_step={k: float(v) for k, v in terms[-1].items()},
+              **fields, card=card)
+        del model, opt, step, batch, teacher, terms
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rest_parity() -> dict:
+    """train_parity of the tiny twins of train_rest's models (E2E_ARGS'
+    widths on _tiny_parity_batch): robust V2VNet at stage 1 (the pose and
+    score terms on, on the frames with the yaml's pose noise), MASH,
+    Where2comm, and the KD step (DiscoNet's student against a frozen
+    teacher on KD batches of the same frames)."""
+    from coalign_tpu_torch.data.batch import (IntermediateFusionBatcher,
+                                              KDFusionBatcher)
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    base = {k: v for k, v in E2E_ARGS.items()
+            if k not in ("fusion_method", "att")}
+    scenes = SyntheticScenes(**E2E_SCENES)
+    frames = [scenes[0], scenes[1]]
+    batcher = dict(max_cav=3, max_points=2500, max_objects=16,
+                   lidar_range=E2E_RANGE)
+    noisy = IntermediateFusionBatcher(**batcher, **YAML_NOISE).assemble(
+        frames)
+    kd_batch = KDFusionBatcher(**batcher).assemble(frames)
+    cases = {
+        "robust": ({"core_method": "point_pillar_v2vnet_robust",
+                    "args": {**base, "robust": {"hidden": 16}}},
+                   {"core_method": "point_pillar_v2v_robust_loss",
+                    "args": {**E2E_LOSS, "robust": {"stage": 1}}}, None,
+                   noisy),
+        "mash": ({"core_method": "point_pillar_mash",
+                  "args": {**base, "mash": {"coarse_downsample": 2,
+                                            "query_dim": 8}}},
+                 {"core_method": "point_pillar_mash_loss",
+                  "args": E2E_LOSS}, None, None),
+        "where2comm": ({"core_method": "point_pillar_where2comm",
+                        "args": {**E2E_ARGS, "where2comm": {
+                            "agg_operator": {"mode": "ATTEN"}}}},
+                       E2E_LOSS, None, None),
+        "kd": ({"core_method": "point_pillar_disconet", "args": base},
+               {"core_method": "point_pillar_disconet_loss",
+                "args": {**E2E_LOSS, "kd": {"weight": 1.0}}},
+               {"core_method": "point_pillar_disconet_teacher",
+                "args": base}, kd_batch),
+    }
+    return {name: train_parity(batch, model_cfg, loss_cfg, teacher)
+            for name, (model_cfg, loss_cfg, teacher, batch)
+            in cases.items()}
 
 
 def stage1_train_full(card) -> tuple:
@@ -1667,13 +2060,27 @@ def stage1_train_full(card) -> tuple:
             step, batches[0])
 
 
+def deterministic(on: bool):
+    """With ``on``, cuDNN's deterministic algorithms without autotuning and
+    PyTorch's deterministic implementations where it has them (a warning
+    where not), so that a short training run ends at the same weights on
+    every run of one commit on one card: stage1_to_ap's 80 Adam steps
+    otherwise gave late AP30 0.27-0.61 and no-fusion 0.32-0.48 over four
+    runs on one card, and once failed the gate. Off restores
+    runtime.configure_cuda's autotuning."""
+    torch.backends.cudnn.benchmark = not on
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on, warn_only=True)
+
+
 def stage1_to_ap(device=None) -> dict:
     """tests/test_late_inference.py's training on the port, for CoAlign's
     stage-1 detector: the tiny point_pillar_uncertainty (seed 0) trained 80
     Adam steps (lr 3e-3) with the uncertainty loss on one late train batch
     of the 4 scenes, then evaluated at B = 2 through make_fusion_infer_fn in
-    the modes late and no. Then its detections (make_stage1_fn, 24 boxes
-    an agent) correct the poses of 20 more scenes of 10 objects (4 boxes
+    the modes late and no, training and evaluation deterministic
+    (deterministic). Then its detections (make_stage1_fn, 24 boxes an
+    agent) correct the poses of 20 more scenes of 10 objects (4 boxes
     are too few landmarks for the pose graph) with the yaml's pose noise
     and box_align args: the relative pose errors before and after,
     and the frames the pose graph leaves uncorrected. Returns the losses,
@@ -1704,13 +2111,20 @@ def stage1_to_ap(device=None) -> dict:
     step = make_train_step(model, build_loss(
         {"core_method": "point_pillar_uncertainty_loss",
          "args": LATE_TINY_LOSS}), spec, opt, device=device)
-    losses = torch.stack([step(train_batch)["total_loss"]
-                          for _ in range(80)]).tolist()
     frames = [dict(b, gt_corners=gt_corners(b)) for b in batcher.batches(
         scenes, 2, shuffle=False, drop_last=False)]
-    ap = {mode: evaluate(make_fusion_infer_fn(
-        model, spec.anchors, LATE_TINY_POST, mode, device=device), frames)
-        for mode in ("late", "no")}
+    try:
+        deterministic(True)
+        losses = torch.stack([step(train_batch)["total_loss"]
+                              for _ in range(80)]).tolist()
+        infer = {mode: make_fusion_infer_fn(model, spec.anchors,
+                                            LATE_TINY_POST, mode,
+                                            device=device)
+                 for mode in ("late", "no")}
+        deterministic(True)          # the infer fns' configure_cuda
+        ap = {mode: evaluate(fn, frames) for mode, fn in infer.items()}
+    finally:
+        deterministic(False)
 
     stage1 = make_stage1_fn(model, spec.anchors, LATE_TINY_POST,
                             STAGE1_BOXES, device=device)
@@ -1760,12 +2174,14 @@ def npy_box_set(npy_dir: str, idx: int) -> tuple:
     return load("pred_corners")[mask], load("pred_scores")[mask]
 
 
-def host_read_ms(params: dict, batch_size: int | None) -> float:
+def host_read_ms(params: dict, batch_size: int | None,
+                 native: bool = True) -> float:
     """Host ms a frame to read the tree's frames (a new dataset, so no
     frame is cached) and, with ``batch_size``, to assemble them into
-    batches of that size."""
+    batches of that size, on the C++ data plane or (``native=False``) in
+    numpy."""
     from coalign_tpu_torch.data import build_dataset
-    base, batcher = build_dataset(params, train=False)
+    base, batcher = build_dataset(params, train=False, native=native)
     t = time.perf_counter()
     if batch_size is None:
         for i in range(len(base)):
@@ -1777,33 +2193,148 @@ def host_read_ms(params: dict, batch_size: int | None) -> float:
     return (time.perf_counter() - t) * 1e3 / len(base)
 
 
-def host_parse_ms(tree: str, frames: int) -> dict:
+def host_parse_ms(tree: str, frames: int, native: bool = False) -> dict:
     """Host ms a frame to parse the tree's cav params (from the json side
     files where there are, else the yamls) and its point clouds, each
-    alone."""
+    alone: the clouds one by one in numpy, or (``native``) a frame's
+    together in the C++ data plane's threads."""
+    from coalign_tpu_torch import native as data_plane
     from coalign_tpu_torch.data.opv2v import _load_params
     from coalign_tpu_torch.data.pcd_io import read_pcd
     files = sorted(os.path.join(d, f[:-5]) for d, _, fs in os.walk(tree)
                    for f in fs if f.endswith(".yaml"))
+    by_frame = {}
+    for f in files:      # <scenario>/<cav>/<timestamp>
+        scenario = os.path.dirname(os.path.dirname(f))
+        by_frame.setdefault((scenario, os.path.basename(f)), []).append(f)
     out = {}
-    for name, read, ext in (("params_ms", _load_params, ".yaml"),
-                            ("pcd_ms", read_pcd, ".pcd")):
-        t = time.perf_counter()
-        for f in files:
-            read(f + ext)
-        out[name] = (time.perf_counter() - t) * 1e3 / frames
+    t = time.perf_counter()
+    for f in files:
+        _load_params(f + ".yaml")
+    out["params_ms"] = (time.perf_counter() - t) * 1e3 / frames
+    t = time.perf_counter()
+    for group in by_frame.values():
+        if native:
+            data_plane.parse_pcd_batch([f + ".pcd" for f in group])
+        else:
+            for f in group:
+                read_pcd(f + ".pcd")
+    out["pcd_ms"] = (time.perf_counter() - t) * 1e3 / frames
     return out
 
 
-def disk_check(card: str, serve_ms: float) -> dict:
+def native_check(card, tree, params, ref_params, model, anchors, post,
+                 eval_base, serve_ms, build) -> dict:
+    """The disk phase's native step: the C++ data plane (``build``: its
+    seconds and library) against the numpy path on the tree. Every pcd
+    parses to the numpy reader's array exactly; host ms a frame to parse
+    the params and the clouds, to read, and to read and assemble at B=1
+    and B=4, taken numpy, native, native, numpy and averaged, beside the
+    serve phase's request ms; the eval loop from disk on each path (the
+    same order): frames/s and the device's busy share; DeviceBatchCache
+    over the tree's B=1 eval batches on the card: the bytes it keeps, and a
+    second epoch served without one batch assembled."""
+    from coalign_tpu_torch import native as data_plane
+    from coalign_tpu_torch.data import build_dataset
+    from coalign_tpu_torch.data.device_cache import DeviceBatchCache
+    from coalign_tpu_torch.data.pcd_io import read_pcd
+    from coalign_tpu_torch.inference import evaluate_dataset, make_infer_fn
+    pcds = sorted(os.path.join(d, f) for d, _, fs in os.walk(tree)
+                  for f in fs if f.endswith(".pcd"))
+    for path in pcds:
+        check(np.array_equal(data_plane.parse_pcd(path), read_pcd(path)),
+              f"{path}: the C++ parse differs from numpy's")
+    frames = len(eval_base)
+    runs = {"numpy": [], "native": []}
+    for path in ("numpy", "native", "native", "numpy"):
+        nat = path == "native"
+        runs[path].append({
+            **host_parse_ms(tree, frames, nat),
+            "read_ms": host_read_ms(params, None, nat),
+            "read_assemble_b1_ms": host_read_ms(params, 1, nat),
+            "read_assemble_b4_ms": host_read_ms(params, 4, nat)})
+    host = {p: {k: float(np.mean([r[k] for r in rs])) for k in rs[0]}
+            for p, rs in runs.items()}
+
+    def eval_from_disk(nat):
+        _, batcher = build_dataset(ref_params, train=False, native=nat)
+        return evaluate_dataset(model, batcher, eval_base, anchors, post)
+
+    loop = {"numpy": [], "native": []}
+    results = {}
+    for path in ("numpy", "native", "native", "numpy"):
+        nat = path == "native"
+        eval_from_disk(nat)                                 # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        results[path] = eval_from_disk(nat)
+        torch.cuda.synchronize()
+        loop[path].append(frames / (time.perf_counter() - t))
+    busy = {p: profile_calls(lambda: eval_from_disk(p == "native"),
+                             reps=1)["device_busy_share"] for p in loop}
+    for key in ("ap30", "ap50", "ap70"):
+        check(abs(results["native"][key] - results["numpy"][key]) <= 0.05,
+              f"native and numpy eval {key}: {results}")
+
+    # DeviceBatchCache over the tree's eval batches
+    _, batcher = build_dataset(ref_params, train=False)
+    reads, assembled = [], {}
+
+    class Batches:
+        def __len__(self):
+            return frames
+
+        def __getitem__(self, i):
+            reads.append(i)
+            assembled[i] = batcher.assemble([eval_base[i]])
+            return assembled[i]
+
+    cache = DeviceBatchCache()
+    t = time.perf_counter()
+    first = list(cache.epoch(Batches()))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    reads.clear()
+    t = time.perf_counter()
+    second = list(cache.epoch(Batches()))
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t
+    check(cache.num_cached == frames and not reads,
+          f"{cache.num_cached} cached, {len(reads)} read again")
+    check(all(a["points"] is b["points"] for a, b in zip(first, second)),
+          "the second epoch did not replay the cached tensors")
+    infer = make_infer_fn(model, anchors, post)
+    want = infer(assembled[0])     # the host batch the cache copied
+    got = infer(second[0])
+    check(torch.equal(got["mask"], want["mask"]),
+          "a cached batch gives other detections")
+    phase("disk", step="native", build=build, pcds=len(pcds),
+          parse_equal_numpy=True, host=host,
+          pcd_speedup=host["numpy"]["pcd_ms"] / host["native"]["pcd_ms"],
+          serve_ms_per_frame=serve_ms,
+          host_over_serve={p: h["read_assemble_b1_ms"] / serve_ms
+                           for p, h in host.items()},
+          eval_frames_per_s={p: float(np.mean(v)) for p, v in loop.items()},
+          eval_loop_busy_share=busy,
+          eval={p: {k: results[p][k] for k in ("ap30", "ap50", "ap70")}
+                for p in results},
+          device_cache={"frames": frames, "bytes": cache.cached_bytes,
+                        "first_epoch_s": first_s,
+                        "second_epoch_s": second_s,
+                        "second_epoch_reads": len(reads)},
+          card=card)
+
+
+def disk_check(card: str, serve_ms: float, native_build: dict) -> dict:
     """The disk phase: the on-disk data path and the run CLI at full width.
 
       read   write_opv2v_fixture writes DISK_SCENES (8 frames in 2
              scenarios, 5 agents, an RSU last) and
              build_dataset reads them back: poses and points exact, boxes
              within 1e-4 m, the RSU never the ego;
-      host   host ms a frame to read (5 yamls, 5 pcds; the params and the
-             clouds also each alone) and to assemble at B=1 and B=4, from
+      host   host ms a frame on the numpy path to read (5 yamls, 5 pcds;
+             the params and the clouds also each alone) and to assemble at
+             B=1 and B=4, from
              the yamls and from precache_json's side files, beside the
              serve phase's request ms (the files were just written, so
              they come from the page cache);
@@ -1817,6 +2348,8 @@ def disk_check(card: str, serve_ms: float) -> dict:
              set on the same batch assembled here (match_box_sets' bounds);
              1 IoU launch a frame; the eval loop's frames/s from disk and
              the device's busy share in it;
+      native the C++ data plane against the numpy path on the tree
+             (native_check);
       coalign    run precalc with the stage1 phase's detector saved as a
              .pth (stage1_boxes.json), then run inference with box_align
              at that json and the yaml's pose noise: AP, IoU launches a
@@ -1886,10 +2419,12 @@ def disk_check(card: str, serve_ms: float) -> dict:
             t = time.perf_counter()
             host["json_files"] = precache_json(tree)
             host["precache_s"] = time.perf_counter() - t
-        host[source] = {"read_ms": host_read_ms(params, None),
+        # the numpy path; the native step measures both paths
+        host[source] = {"read_ms": host_read_ms(params, None, False),
                         **host_parse_ms(tree, len(base)),
-                        "read_assemble_b1_ms": host_read_ms(params, 1),
-                        "read_assemble_b4_ms": host_read_ms(params, 4)}
+                        "read_assemble_b1_ms": host_read_ms(params, 1, False),
+                        "read_assemble_b4_ms": host_read_ms(params, 4,
+                                                            False)}
     phase("disk", step="host", **host, serve_ms_per_frame=serve_ms,
           host_over_serve=host["json"]["read_assemble_b1_ms"] / serve_ms,
           card=card)
@@ -1966,6 +2501,8 @@ def disk_check(card: str, serve_ms: float) -> dict:
           eval_loop_profile={k: prof[k] for k in (
               "call_wall_ms", "device_kernel_ms", "device_kernel_launches")},
           card=card)
+    native_check(card, tree, params, ref_params, model, anchors, post,
+                 eval_base, serve_ms, native_build)
     del model
 
     # coalign: precalc, then inference corrected from its json
@@ -2086,12 +2623,20 @@ def main() -> int:
     phase("card", card=card, torch=torch.__version__,
           cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
 
-    # 2. build
+    # 2. build: nvcc (the IoU kernel) and g++ (the host data plane) at once
+    from concurrent.futures import ThreadPoolExecutor
+
+    from coalign_tpu_torch import native
     t = time.time()
-    lib, log = K.build()
+    with ThreadPoolExecutor(2) as pool:
+        data_plane = pool.submit(native.build)
+        lib, log = K.build()
+        dp_lib, dp_seconds = data_plane.result()
+    native_build = {"seconds": dp_seconds, "library": os.path.relpath(
+        dp_lib, ROOT)}
     phase("build", seconds=round(time.time() - t, 3), library=lib.name,
           ptxas=[ln.strip() for ln in log.splitlines() if "Used" in ln
-                 or "spill" in ln])
+                 or "spill" in ln], data_plane=native_build)
 
     # 3. kernel against its plain version (1e-4: same f32 function; the
     # kernel keys its sort by a pseudo-angle instead of atan2 and nvcc
@@ -2195,6 +2740,9 @@ def main() -> int:
     phase("baseline_recordings", max_abs_err=baseline_recordings(),
           card=card)
 
+    # 16. the rest of the PointPillars fusions at full width
+    rest_launches = fusions_rest_check(card)
+
     # 6. AP of the tiny flagship on the 10 recorded frames
     io_ap = np.load(os.path.join(GOLDEN, "e2e_ap_io.npz"))
     tiny = build_model({"core_method": "point_pillar_baseline_multiscale",
@@ -2268,8 +2816,13 @@ def main() -> int:
           card=card)
     del tiny_flagship, stage1_tiny
 
+    # 17. their training at full width; the tiny twins' CUDA steps against
+    # the CPU
+    rest_train_launches = train_rest(card)
+    phase("rest_parity", **rest_parity())
+
     # 15. the on-disk data path and the run CLI at full width
-    disk = disk_check(card, per_call)
+    disk = disk_check(card, per_call, native_build)
 
     # the kernel on the main path's own input (one frame's 512 boxes), on
     # that input stacked 8 times (the NMS of a B=8 batch, one launch), on
@@ -2308,6 +2861,8 @@ def main() -> int:
         "launches_per_baseline_request": baseline_launches,
         "launches_per_stage1_train_step":
             stage1_train["launches_per_train_step"],
+        "launches_per_fusions_rest_request": rest_launches,
+        "launches_per_rest_train_step": rest_train_launches,
         **disk,
         "max_abs_err": main["max_abs_err"],
         "max_abs_diff": main["max_abs_err"],

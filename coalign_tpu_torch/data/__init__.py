@@ -4,7 +4,7 @@
 
 from coalign_tpu_torch.data.batch import (EarlyFusionBatcher,  # noqa: F401
                                           IntermediateFusionBatcher,
-                                          LateFusionBatcher)
+                                          KDFusionBatcher, LateFusionBatcher)
 from coalign_tpu_torch.data.synthetic import SyntheticScenes  # noqa: F401
 
 _BATCHERS = {"intermediate": IntermediateFusionBatcher,
@@ -12,25 +12,27 @@ _BATCHERS = {"intermediate": IntermediateFusionBatcher,
              "late": LateFusionBatcher}
 
 
-def build_dataset(params: dict, train: bool = True):
+def build_dataset(params: dict, train: bool = True, native: bool = True):
     """(base dataset, batcher) from a hypes yaml's ``fusion``, ``root_dir``
     (``validate_dir`` first when not ``train``), ``train_params.max_cav``,
     ``preprocess.cav_lidar_range``, ``comm_range``, ``noise_setting`` and,
     when ``train``, ``data_augment`` (ref data_utils/datasets/__init__.py:
     10-28). The base dataset serves frames; the batcher assembles padded
     fixed-shape host batches. The fusion method picks the batcher:
-    intermediate unless it names early or late."""
+    intermediate unless it names early or late. ``native`` picks the C++
+    data plane for both (the default) or their numpy paths (reader and
+    batcher ``native=False``)."""
     fusion = params["fusion"]["core_method"].lower()
     name = params["fusion"].get("dataset",
                                 params.get("dataset", "opv2v")).lower()
     if name in ("dairv2x", "v2xsim"):
         raise NotImplementedError(
-            f"the {name} reader is not ported yet (ROADMAP item 6)")
+            f"the {name} reader is not ported yet (ROADMAP item 4)")
     if name not in ("opv2v", "v2xset"):
         raise KeyError(f"unknown dataset {name!r}")
     if "camera" in params.get("input_source", ["lidar"]):
         raise NotImplementedError(
-            "camera batches come with the LSS camera family (ROADMAP item 9)")
+            "camera batches come with the LSS camera family (ROADMAP item 7)")
 
     from coalign_tpu_torch.data.opv2v import (OPV2VBaseDataset,
                                               V2XSETBaseDataset)
@@ -38,7 +40,7 @@ def build_dataset(params: dict, train: bool = True):
     root = params["root_dir"] if train else (
         params.get("validate_dir") or params["root_dir"])
     cls = OPV2VBaseDataset if name == "opv2v" else V2XSETBaseDataset
-    base = cls(root, train=train, max_cav=max_cav)
+    base = cls(root, train=train, max_cav=max_cav, native=native)
 
     noise = params.get("noise_setting", {})
     args = noise.get("args", {}) if noise.get("add_noise") else {}
@@ -50,6 +52,7 @@ def build_dataset(params: dict, train: bool = True):
         rot_std=args.get("rot_std", 0.0),
         laplace=bool(args.get("laplace", False)),
         train=train,
+        native=native,
     )
     if train and params.get("data_augment"):
         from coalign_tpu_torch.data.augment import WorldAugmentor

@@ -2,8 +2,8 @@
 
 Port of coalign_tpu/data/batch.py's ``IntermediateFusionBatcher`` (ref
 opencood/data_utils/datasets/intermediate_fusion_dataset.py:236-575),
-``EarlyFusionBatcher`` and ``LateFusionBatcher`` (ref
-early_fusion_dataset.py, late_fusion_dataset.py), numpy only. Agents are
+``EarlyFusionBatcher``, ``KDFusionBatcher`` and ``LateFusionBatcher`` (ref
+early_fusion_dataset.py, late_fusion_dataset.py, train_w_kd.py). Agents are
 padded to ``L = max_cav`` with ``agent_mask`` instead of the reference's
 flattened ``record_len``; voxelization happens
 on the device (models/pillar_encoder.py), so the host only masks and pads
@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from coalign_tpu_torch import native as _native
 from coalign_tpu_torch.utils import box_utils as B
 from coalign_tpu_torch.utils.transforms import (get_pairwise_transformation,
                                                 inverse_tfm, pose_to_tfm)
@@ -38,12 +39,23 @@ class IntermediateFusionBatcher:
     ``default_rng(seed)`` draws, in order, the pose noise, the point
     subsamples and the shuffles. With ``train`` set, ``batches`` yields
     ``assemble_train``'s batches where the batcher has one (late fusion
-    trains on one agent a frame)."""
+    trains on one agent a frame).
+
+    Each agent's points are range-masked, cut to ``max_points`` and padded
+    by the C++ data plane with ``native`` (the default, as in the JAX
+    package where its library builds): x and y in [min, max), z in [min,
+    max], a deterministic stride subsample that draws nothing from the
+    generator (native.mask_pad_points). With ``native=False`` numpy does it
+    as the JAX package's fallback does: every bound inclusive, and a random
+    subsample ``rng.choice`` that advances the generator the pose noise
+    draws from next. The two paths give different batches when a cloud
+    overflows ``max_points`` or a point lies on a range bound."""
 
     def __init__(self, max_cav=5, max_points=30000, max_objects=100,
                  lidar_range=(-140.8, -40, -3, 140.8, 40, 1),
                  comm_range=70.0, pos_std=0.0, rot_std=0.0, seed=303,
-                 augmentor=None, train=False, laplace=False):
+                 augmentor=None, train=False, laplace=False, native=True):
+        self.native = native
         self.train = train
         self.max_cav = max_cav
         self.max_points = max_points
@@ -89,11 +101,16 @@ class IntermediateFusionBatcher:
                 <= self.comm_range]
             for ai, ag in enumerate(kept[:l]):
                 pts = ag["points"]
-                pts = pts[B.mask_points_by_range(pts, self.lidar_range)]
-                if len(pts) > n:
-                    pts = pts[self.rng.choice(len(pts), n, replace=False)]
-                points[bi, ai, :len(pts)] = pts
-                point_mask[bi, ai, :len(pts)] = True
+                if self.native:
+                    points[bi, ai], point_mask[bi, ai] = \
+                        _native.mask_pad_points(pts, self.lidar_range, n)
+                else:
+                    pts = pts[B.mask_points_by_range(pts, self.lidar_range)]
+                    if len(pts) > n:
+                        pts = pts[self.rng.choice(len(pts), n,
+                                                  replace=False)]
+                    points[bi, ai, :len(pts)] = pts
+                    point_mask[bi, ai, :len(pts)] = True
                 agent_mask[bi, ai] = True
                 poses_clean[bi, ai] = ag["pose"]
                 poses_noisy[bi, ai] = ag["pose"] + self._noise()
@@ -197,6 +214,22 @@ class EarlyFusionBatcher(IntermediateFusionBatcher):
 
     def assemble(self, frames: list) -> dict:
         return merge_agents(super().assemble(frames), self.lidar_range)
+
+
+class KDFusionBatcher(EarlyFusionBatcher):
+    """Knowledge-distillation batches (coalign_tpu/data/batch.py:215-230;
+    ref intermediate_fusion_dataset's ``teacher_processed_lidar``,
+    train_w_kd.py:32-112): the intermediate batch for the student plus the
+    merged ego-frame cloud of merge_agents as ``teacher_points`` (B, 1,
+    L*N, 4) and ``teacher_point_mask`` for the frozen early-fusion teacher;
+    both views share one draw of the pose noise."""
+
+    def assemble(self, frames: list) -> dict:
+        inter = IntermediateFusionBatcher.assemble(self, frames)
+        early = merge_agents(inter, self.lidar_range)
+        inter["teacher_points"] = early["points"]
+        inter["teacher_point_mask"] = early["point_mask"]
+        return inter
 
 
 class LateFusionBatcher(IntermediateFusionBatcher):

@@ -28,7 +28,7 @@ def write_opv2v_fixture(root: str, scenes, frames_per_scenario: int = 4,
     the ego) is written as an RSU, under a negative id."""
     if with_cameras:
         raise NotImplementedError(
-            "camera fixtures come with the LSS camera family (ROADMAP item 9)")
+            "camera fixtures come with the LSS camera family (ROADMAP item 7)")
     n = len(scenes)
     n_scen = max(1, n // frames_per_scenario)
     for si in range(n_scen):

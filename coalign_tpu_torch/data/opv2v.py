@@ -19,8 +19,10 @@ Frame contract:
                "visible_ids": (Vi,) int, ["cameras": {...}]}],
    "objects": {"boxes": (O,7) world hwl, "ids": (O,) int}}
 
-The JAX package parses the point clouds with its C++ data plane when that
-builds; this reader is numpy only (data/pcd_io.py), which reads the same
+With ``native`` (the default, as the JAX package's where its library
+builds) a frame's point clouds parse together in C++ threads
+(native.parse_pcd_batch, data/opv2v.py:251-253 of the JAX package); with
+``native=False`` one at a time in numpy (data/pcd_io.py). Both read the same
 values.
 """
 
@@ -33,6 +35,7 @@ import re
 import numpy as np
 import yaml
 
+from coalign_tpu_torch import native as _native
 from coalign_tpu_torch.data.pcd_io import read_pcd
 from coalign_tpu_torch.utils.box_utils import corner_to_center
 from coalign_tpu_torch.utils.transforms import pose_to_tfm
@@ -136,15 +139,17 @@ class OPV2VBaseDataset:
     downstream; off with ``shuffle_cavs``, whose reinitialize re-reads the
     tree); ``load_camera`` adds each agent's camera parameters and image
     paths (the images themselves are read by the camera family, ROADMAP
-    item 9)."""
+    item 7); ``native`` parses a frame's clouds in the C++ data plane's
+    threads, ``native=False`` in numpy."""
 
     label_key = "vehicles"
 
     def __init__(self, root_dir: str, train: bool = True, max_cav: int = 5,
                  load_lidar: bool = True, load_camera: bool = False,
                  shuffle_cavs: bool = False, seed: int = 303,
-                 cache_frames: bool = False):
+                 cache_frames: bool = False, native: bool = True):
         self.root_dir = root_dir
+        self.native = native
         self.train = train
         self.max_cav = max_cav
         self.load_lidar = load_lidar
@@ -238,7 +243,11 @@ class OPV2VBaseDataset:
         agents = []
         all_boxes, all_ids = [], []
         seen = set()
-        for cav_id in cav_list:
+        if self.load_lidar and self.native:
+            # a copy each, so that a frame holds no view of the shared buffer
+            clouds = [c.copy() for c in _native.parse_pcd_batch(
+                [os.path.join(db[c], ts + ".pcd") for c in cav_list])]
+        for ci, cav_id in enumerate(cav_list):
             cav_path = db[cav_id]
             params = _load_params(os.path.join(cav_path, ts + ".yaml"))
             boxes, ids = vehicles_to_world_boxes(
@@ -247,8 +256,8 @@ class OPV2VBaseDataset:
                                         dtype=np.float32),
                      "cav_id": cav_id, "visible_ids": ids}
             if self.load_lidar:
-                agent["points"] = read_pcd(os.path.join(cav_path,
-                                                        ts + ".pcd"))
+                agent["points"] = (clouds[ci] if self.native else read_pcd(
+                    os.path.join(cav_path, ts + ".pcd")))
             if self.load_camera:
                 agent["cameras"] = self._camera_params(params)
                 agent["camera_files"] = [

@@ -37,7 +37,11 @@ LATE_MODES = {"late": "late", "no": "no", "no_w_uncertainty": "no",
 _BATCH_DTYPES = {"points": torch.float32, "point_mask": torch.bool,
                  "agent_mask": torch.bool,
                  "pairwise_t_matrix": torch.float32,
-                 "transformation_matrix": torch.float32}
+                 "transformation_matrix": torch.float32,
+                 # robust V2VNet's pose target, DiscoNet's teacher's input
+                 "lidar_pose_clean": torch.float32,
+                 "teacher_points": torch.float32,
+                 "teacher_point_mask": torch.bool}
 
 
 def to_device(batch: dict, device, float_dtype=torch.float32) -> dict:
@@ -89,7 +93,9 @@ def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):
     pairwise_t_matrix (B, L, L, 4, 4), transformation_matrix (B, 4, 4).
     ``anchors`` is the (H, W, A, 7) anchor grid. Returns tensors on the
     device: corners3d (B, max_num, 8, 3), boxes7 (B, max_num, 7),
-    scores (B, max_num), mask (B, max_num). On CUDA it sets the
+    scores (B, max_num), mask (B, max_num), and the model's ``comm_rate``
+    (a 0-dim tensor) where it gives one (Where2comm; coalign_tpu/
+    inference.py:111-112). On CUDA it sets the
     process-wide full-float32 and cuDNN-autotuning policy
     (runtime.configure_cuda).
     """
@@ -101,10 +107,13 @@ def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):
         b = to_device(batch, dev)
         out = model(b)
         with record_function("stage/post_process"):
-            return post_process(out["cls_preds"], out["reg_preds"], anchors,
+            dets = post_process(out["cls_preds"], out["reg_preds"], anchors,
                                 b["transformation_matrix"],
                                 dir_preds=out.get("dir_preds"),
                                 max_keep=max_keep, **kwargs)
+        if "comm_rate" in out:
+            dets["comm_rate"] = out["comm_rate"]
+        return dets
 
     return infer
 
@@ -240,7 +249,8 @@ def evaluate_dataset(model, batcher, dataset, anchors, postprocess_cfg, *,
     (make_fusion_infer_fn) on ``device`` (CUDA unless named), and AP
     against the batches' gt_boxes/gt_mask. Returns evaluate's {'ap30',
     'ap50', 'ap70', 'frames'} and the bandwidth per frame
-    (utils/bandwidth.py).
+    (utils/bandwidth.py), scaled by the model's ``comm_rate`` where it
+    gives one (Where2comm; coalign_tpu/inference.py:262).
 
     Batches are assembled a step ahead in a side thread and stay on the
     host (data/prefetch.py). ``batch_hook(batch, frame_ids)`` maps each
@@ -261,8 +271,10 @@ def evaluate_dataset(model, batcher, dataset, anchors, postprocess_cfg, *,
 
     def infer_and_record(batch: dict) -> dict:
         dets = infer(batch)
-        comm_bytes.append(frame_comm_bytes(fusion_method, batch, model=model,
-                                           max_num=max_num))
+        rate = dets.get("comm_rate")
+        comm_bytes.append(frame_comm_bytes(
+            fusion_method, batch, model=model, max_num=max_num,
+            comm_rate=None if rate is None else float(rate)))
         if npy_dir:
             dump_detections_npy(dets, batch, npy_dir, next(batch_ids))
         return dets

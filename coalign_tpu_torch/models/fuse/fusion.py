@@ -1,8 +1,9 @@
 """Intermediate BEV fusion: warp every agent into the ego frame, then reduce
 over agents with a mask (ref fusion_in_one.py), ported from
 coalign_tpu/models/fuse/fusion.py. None of these three fusions has
-parameters; build_fusion also builds the learned ones of graph_fusion.py
-and v2xvit.py by their yaml names.
+parameters; build_fusion also builds the learned ones of graph_fusion.py,
+v2xvit.py and deform.py by their yaml names (deform's ``num_agents``, the
+L of its batches, 5 unless ``deform.num_agents`` says otherwise).
 
 Every fusion takes features (B, L, C, H, W), the normalized pairwise
 affines (B, L, L, 2, 3) ([b, i, j] samples j's map into frame i) and
@@ -93,10 +94,18 @@ def _v2xvit(args: dict, dim: int) -> nn.Module:
     return V2XViTFusion(args["v2xvit"], dim)
 
 
+def _deform(args: dict, dim: int) -> nn.Module:
+    from coalign_tpu_torch.models.fuse.deform import DeformableFusion
+    sub = args.get("deform", {})
+    return DeformableFusion(dim, sub.get("num_agents", 5),
+                            sub.get("num_points", 4))
+
+
 _FUSIONS = {
     "max": lambda args, dim: MaxFusion(),
     "mean": lambda args, dim: MeanFusion(),
     "att": lambda args, dim: AttFusion(dim),
+    "deform": _deform,
     "disconet": _disconet,
     "v2vnet": _v2vnet,
     "when2comm": _when2comm,

@@ -33,3 +33,15 @@ def detection_heads(model: nn.Module, x: torch.Tensor) -> dict:
     if model.unc_head is not None:
         out["unc_preds"] = model.unc_head(x)
     return out
+
+
+class DetectionHeads(nn.Module):
+    """The heads of add_detection_heads as a submodule of their own, for a
+    model with a second set (Where2comm's ``single_heads``)."""
+
+    def __init__(self, in_ch: int, args: dict):
+        super().__init__()
+        add_detection_heads(self, in_ch, args)
+
+    def forward(self, x: torch.Tensor) -> dict:
+        return detection_heads(self, x)

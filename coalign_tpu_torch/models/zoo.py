@@ -18,7 +18,20 @@ Ports of coalign_tpu/models/zoo.py:
     no fusion;
   * PointPillarUncertainty (:440-449; ref point_pillar_uncertainty.py:15):
     PointPillar with a log-variance head, CoAlign's stage-1 detector that
-    feeds the pose graph (tools/stage1.py).
+    feeds the pose graph (tools/stage1.py);
+  * PointPillarDeformTransformer (:229-240; ref
+    point_pillar_deform_transformer.py:20): the baseline with ``deform``
+    fusion by default;
+  * PointPillarWhere2comm (:243-291; ref comm_modules/where2comm.py,
+    where2comm_attn.py:174): per-scale fusion of maps masked by each
+    agent's confidence, with its own single-agent heads (the ``*_single``
+    outputs, on (B*L, ...)) and the ``comm_rate``;
+  * PointPillarV2VNetRobust (:294-345; ref point_pillar_v2vnet_robust.py
+    :21) and PointPillarMash (:348-381; ref point_pillar_mash.py:18): the
+    pose-robust baselines (fuse/robust.py, fuse/mash.py);
+  * PointPillarDiscoNetTeacher (:411-437; ref
+    point_pillar_disconet_teacher.py:15): DiscoNet's early-fusion teacher
+    on the merged cloud, its outputs prefixed ``teacher_``.
 
 Batch contract (the JAX package's):
   points            (B, L, N, 4) float   raw lidar in each agent's frame
@@ -40,12 +53,16 @@ from torch.profiler import record_function
 
 from coalign_tpu_torch.models.backbones import backbone_from_config
 from coalign_tpu_torch.models.fuse.fusion import build_fusion
-from coalign_tpu_torch.models.heads import add_detection_heads, detection_heads
+from coalign_tpu_torch.models.heads import (DetectionHeads,
+                                            add_detection_heads,
+                                            detection_heads)
 from coalign_tpu_torch.models.layers import DownsampleConv, NaiveCompressor
 from coalign_tpu_torch.models.pillar_encoder import PillarEncoder
 from coalign_tpu_torch.ops.pillars import PillarSpec
 from coalign_tpu_torch.runtime import resolve_device
-from coalign_tpu_torch.utils.transforms import normalize_pairwise_tfm
+from coalign_tpu_torch.utils.transforms import (get_pairwise_transformation,
+                                                inverse_tfm, matmul_f32,
+                                                normalize_pairwise_tfm)
 
 
 class _PillarBase(nn.Module):
@@ -214,6 +231,151 @@ class CoAlign(PointPillarBaselineMultiscale):
     """Alias (ref point_pillar_coalign.py:9)."""
 
 
+class PointPillarDeformTransformer(PointPillarBaseline):
+    """Deformable-attention fusion (ref point_pillar_deform_transformer.py
+    :20, whose sampling is an external CUDA extension; here fuse/deform.py):
+    the baseline with ``deform`` fusion unless the yaml names another."""
+
+    def __init__(self, args: dict):
+        super().__init__({"fusion_method": "deform", **args})
+
+
+class PointPillarWhere2comm(_PillarBase):
+    """Where2comm (ref comm_modules/where2comm.py, where2comm_attn.py:174):
+    the backbone's scales are decoded once per agent through the shrink and
+    the ``single_heads``, whose cls logits (detached) are the confidence
+    maps that mask what each agent sends; the masked scales are fused
+    (``where2comm.agg_operator.mode``: ATTEN or max), decoded, shrunk and
+    go through the heads. Outputs the fused maps, ``comm_rate`` and the
+    single heads' maps with the ``_single`` suffix on (B*L, ...)."""
+
+    def __init__(self, args: dict):
+        super().__init__(args)
+        from coalign_tpu_torch.models.fuse.where2comm import Where2commFusion
+        bb = args["base_bev_backbone"]
+        mode = args.get("where2comm", {}).get("agg_operator", {}).get(
+            "mode", "ATTEN")
+        self.fusion_net = Where2commFusion(mode, tuple(bb["num_filters"]))
+        self.single_heads = DetectionHeads(self.out_dim, args)
+
+    def forward(self, batch: dict) -> dict:
+        bev, affine, (b, l) = self._encode_agents(batch)
+        bn_mask = batch["agent_mask"].reshape(b * l)
+        with record_function("stage/backbone_encode"):
+            feats = self.backbone.encode(bev, bn_mask)
+        with record_function("stage/single_heads"):
+            single = self.backbone.decode(feats, bn_mask)
+            if self.shrink_conv is not None:
+                single = self.shrink_conv(single)
+            single_out = self.single_heads(single)
+        conf = single_out["cls_preds"].detach()
+        with record_function("stage/fusion"):
+            fused, rate = self.fusion_net(
+                [f.reshape((b, l) + f.shape[1:]) for f in feats],
+                conf.reshape((b, l) + conf.shape[1:]), affine,
+                batch["agent_mask"])
+        with record_function("stage/decode_shrink_heads"):
+            out = self._shrink_heads(self.backbone.decode(fused))
+        out["comm_rate"] = rate
+        out.update({k + "_single": v for k, v in single_out.items()})
+        return out
+
+
+class PointPillarV2VNetRobust(_PillarBase):
+    """Robust V2VNet (ref point_pillar_v2vnet_robust.py:21-139): backbone,
+    shrink, then fuse/robust.RobustFusion on the noisy pairwise transforms
+    (``robust``: hidden, downsample_rate, use_consistency), then the heads.
+    Outputs pose_corr, agent_scores and pairwise_t_corrected too, and, for
+    a batch with ``lidar_pose_clean``, the detached ``pose_corr_target``:
+    the correction T_clean @ T_noisy^-1 of each pair as (x, y, yaw). The
+    three-stage curriculum (ref :72-79) is tools/train_robust.py's."""
+
+    def __init__(self, args: dict):
+        super().__init__(args)
+        from coalign_tpu_torch.models.fuse.robust import RobustFusion
+        rb = args.get("robust", {})
+        self.fusion_net = RobustFusion(
+            self.out_dim, hidden=rb.get("hidden", 128),
+            downsample_rate=rb.get("downsample_rate", 2.0),
+            discrete_ratio=args["voxel_size"][0],
+            use_consistency=rb.get("use_consistency", True))
+
+    def forward(self, batch: dict) -> dict:
+        from coalign_tpu_torch.models.fuse.robust import tfm_to_pose3
+        bev, _, (b, l) = self._encode_agents(batch)
+        with record_function("stage/backbone_shrink"):
+            x = self.backbone(bev, batch["agent_mask"].reshape(b * l))
+            if self.shrink_conv is not None:
+                x = self.shrink_conv(x)
+        noisy = batch["pairwise_t_matrix"].to(x.dtype)
+        with record_function("stage/fusion"):
+            fused, aux = self.fusion_net(x.reshape((b, l) + x.shape[1:]),
+                                         noisy, batch["agent_mask"])
+        with record_function("stage/heads"):
+            out = detection_heads(self, fused)
+        out.update(aux)
+        if "lidar_pose_clean" in batch:
+            clean = get_pairwise_transformation(batch["lidar_pose_clean"],
+                                                batch["agent_mask"])
+            out["pose_corr_target"] = tfm_to_pose3(
+                matmul_f32(clean.to(x.dtype), inverse_tfm(noisy))).detach()
+        return out
+
+
+class PointPillarMash(_PillarBase):
+    """MASH (ref point_pillar_mash.py:18-160): backbone, shrink, then the
+    pose-free fuse/mash.MASHFusion (``mash``: coarse_downsample,
+    query_dim), then the heads; outputs the correspondence logits as
+    ``corr_vol`` (B, L, P, P + 1)."""
+
+    def __init__(self, args: dict):
+        super().__init__(args)
+        from coalign_tpu_torch.models.fuse.mash import MASHFusion
+        mash = args.get("mash", {})
+        self.fusion_net = MASHFusion(
+            self.out_dim, coarse_downsample=mash.get("coarse_downsample", 4),
+            query_dim=mash.get("query_dim", 32))
+
+    def forward(self, batch: dict) -> dict:
+        bev, affine, (b, l) = self._encode_agents(batch)
+        with record_function("stage/backbone_shrink"):
+            x = self.backbone(bev, batch["agent_mask"].reshape(b * l))
+            if self.shrink_conv is not None:
+                x = self.shrink_conv(x)
+        with record_function("stage/fusion"):
+            fused, corr_vol = self.fusion_net(
+                x.reshape((b, l) + x.shape[1:]), affine, batch["agent_mask"])
+        with record_function("stage/heads"):
+            out = detection_heads(self, fused)
+        out["corr_vol"] = corr_vol
+        return out
+
+
+class PointPillarDiscoNetTeacher(_PillarBase):
+    """DiscoNet's early-fusion teacher (ref point_pillar_disconet_teacher.py
+    :15-75): the single-agent detector on the merged ego-frame cloud
+    (``teacher_points`` (B, 1, N, 4) and ``teacher_point_mask`` where the
+    batch has them, data/batch.KDFusionBatcher; else ``points``), with its
+    backbone's norms over every frame (no agent mask). Outputs the shrunk
+    map as ``teacher_feature`` and the heads' maps prefixed ``teacher_``.
+    Its modules carry the reference's names, so the reference's
+    point_pillar teacher checkpoints load strictly."""
+
+    def forward(self, batch: dict) -> dict:
+        points = batch.get("teacher_points", batch["points"])
+        mask = batch.get("teacher_point_mask", batch["point_mask"])
+        if points.dim() == 4:
+            points = points.reshape((-1,) + points.shape[2:])
+            mask = mask.reshape((-1,) + mask.shape[2:])
+        x = self.backbone(self.pillar_vfe(points, mask))
+        if self.shrink_conv is not None:
+            x = self.shrink_conv(x)
+        out = {"teacher_feature": x}
+        out.update({"teacher_" + k: v
+                    for k, v in detection_heads(self, x).items()})
+        return out
+
+
 _MODELS = {
     "point_pillar": PointPillar,
     "point_pillar_uncertainty": PointPillarUncertainty,
@@ -222,6 +384,11 @@ _MODELS = {
     "point_pillar_baseline": PointPillarBaseline,
     "point_pillar_intermediate": PointPillarIntermediate,
     "point_pillar_disconet": PointPillarDiscoNet,
+    "point_pillar_disconet_teacher": PointPillarDiscoNetTeacher,
+    "point_pillar_deform_transformer": PointPillarDeformTransformer,
+    "point_pillar_where2comm": PointPillarWhere2comm,
+    "point_pillar_v2vnet_robust": PointPillarV2VNetRobust,
+    "point_pillar_mash": PointPillarMash,
 }
 
 
@@ -240,7 +407,9 @@ def init_weights(model: nn.Module, generator: torch.Generator):
     ConvTranspose's input channels too), zero biases, batch norms with
     scale 1, bias 0, running mean 0 and variance 1, layer norms with scale
     1 and bias 0; a module's own parameters (V2X-ViT's relation matrices
-    and position embeddings) by its ``init_weights(generator)``."""
+    and position embeddings, MASH's no-match logit, robust V2VNet's alpha)
+    and the Linears that start at zero (ZeroInitLinear) by its
+    ``init_weights(generator)``."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (nn.modules.batchnorm._BatchNorm,

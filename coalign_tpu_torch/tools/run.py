@@ -49,9 +49,9 @@ from coalign_tpu_torch.train import (build_optimizer, inference_checkpoint,
 # options of the JAX package's CLI that the port does not have yet, each
 # with the ROADMAP item that brings it
 _REFUSED_FLAGS = {
-    "save_vis": "visualization/ (ROADMAP item 11)",
-    "profile": "utils/profiling.py's device trace (ROADMAP item 11)",
-    "bf16": "the compute-dtype policy (ROADMAP item 5)",
+    "save_vis": "visualization/ (ROADMAP item 9)",
+    "profile": "utils/profiling.py's device trace (ROADMAP item 9)",
+    "bf16": "the compute-dtype policy (ROADMAP item 3)",
 }
 
 
@@ -61,7 +61,7 @@ def build_all(params: dict, train: bool = True, device=None):
     post = params["postprocess"]
     if post.get("core_method") == "BevPostprocessor":
         raise NotImplementedError(
-            "the anchor-free PIXOR family is not ported yet (ROADMAP item 7)")
+            "the anchor-free PIXOR family is not ported yet (ROADMAP item 5)")
     base, batcher = build_dataset(params, train=train)
     model = build_model(params["model"], device=device)
     loss_fn = build_loss(params["loss"])
@@ -349,15 +349,15 @@ def main(argv=None):
                        help="save each frame's detections and gt under "
                             "<model_dir>/npy (ref inference_utils.py:176)")
         s.add_argument("--save_vis", action="store_true",
-                       help="not ported yet (ROADMAP item 11)")
+                       help="not ported yet (ROADMAP item 9)")
         s.add_argument("--profile", default=None,
-                       help="not ported yet (ROADMAP item 11)")
+                       help="not ported yet (ROADMAP item 9)")
         s.add_argument("--bf16", action="store_true",
-                       help="not ported yet (ROADMAP item 5)")
+                       help="not ported yet (ROADMAP item 3)")
     opt = p.parse_args(argv)
     if opt.cmd == "export":
         raise NotImplementedError(
-            "export waits for the port of serving.py (ROADMAP item 11)")
+            "export waits for the port of serving.py (ROADMAP item 9)")
     for flag, what in _REFUSED_FLAGS.items():
         if getattr(opt, flag):
             raise NotImplementedError(f"--{flag} waits for {what}")

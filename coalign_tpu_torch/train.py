@@ -77,7 +77,7 @@ def build_optimizer(params, opt_cfg: dict, sched_cfg: dict | None = None,
 
 
 def make_train_step(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
-                    scheduler=None, device=None):
+                    scheduler=None, device=None, teacher=None):
     """(batch) -> loss terms of one training step on ``device`` (CUDA unless
     named; on CUDA it sets runtime.configure_cuda's policy).
 
@@ -88,9 +88,15 @@ def make_train_step(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
     device, detached: reading them (``float``) is the caller's sync. The
     stage/labels, stage/loss, stage/backward and stage/optimizer ranges
     name the step's stages in a torch.profiler trace, beside the model's
-    own. The batch's float inputs take the model's float dtype."""
+    own. The batch's float inputs take the model's float dtype.
+
+    With a ``teacher`` (knowledge distillation, tools/train_kd.py) the
+    frozen teacher runs on the batch in eval mode without gradients before
+    the model, and the loss takes its outputs merged into the model's."""
     dev = resolve_device(device)
     model.to(dev)
+    if teacher is not None:
+        teacher.to(dev).eval()
     if dev.type == "cuda":
         configure_cuda()
     spec = anchor_spec.to(dev)
@@ -101,14 +107,25 @@ def make_train_step(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
             for key, dtype in _LABEL_DTYPES.items():
                 b[key] = torch.as_tensor(batch[key], dtype=dtype, device=dev)
             labels = assign_targets(b["gt_boxes"], b["gt_mask"], spec)
+        t_out = {}
+        if teacher is not None:
+            with torch.no_grad(), record_function("stage/teacher"):
+                t_out = teacher(b)
         model.train()
-        out = model(b)
+        out = dict(model(b), **t_out)
         with record_function("stage/loss"):
             total, terms = loss_fn(out, labels)
         optimizer.zero_grad(set_to_none=True)
         with record_function("stage/backward"):
             total.backward()
         with record_function("stage/optimizer"):
+            # a parameter the loss does not reach (Where2comm's single
+            # heads under point_pillar_loss) gets a zero gradient, as in
+            # JAX, so that AdamW still decays it as optax.adamw does
+            for group in optimizer.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
             optimizer.step()
             if scheduler is not None:
                 scheduler.step()

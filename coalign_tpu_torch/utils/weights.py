@@ -5,7 +5,11 @@ checkpoint loads with ``load_state_dict(strict=True)`` (:func:`load_pth`).
 :func:`from_jax_params` turns the variables of a coalign_tpu PointPillars
 model (the flagship, ``point_pillar``, ``point_pillar_uncertainty``,
 ``point_pillar_baseline`` with any ported fusion, ``point_pillar_
-intermediate``, ``point_pillar_disconet``; ``{"params": ...,
+intermediate``, ``point_pillar_disconet`` and its teacher, ``point_pillar_
+deform_transformer``, ``point_pillar_where2comm`` with its
+``single_heads``, ``point_pillar_v2vnet_robust`` with its pair nets and
+``alpha``, ``point_pillar_mash`` with its down blocks and ``no_match``;
+``{"params": ...,
 "batch_stats": ...}`` as nested dicts of numpy arrays) into such a state
 dict: it is the inverse of the PointPillars-family maps of
 coalign_tpu/utils/ckpt_import.py (``_map_pfn``, ``_map_resnet_trunk``, the
@@ -124,9 +128,11 @@ def _torch_key(path: str, layer_nums) -> tuple[str, str]:
         key = f"shrink_conv.layers.{c // 2}.double_conv.{2 * (c % 2)}"
         return (f"{key}.weight", "conv") if leaf == "kernel" else \
             (f"{key}.bias", "plain")
-    if m := re.fullmatch(r"heads/(cls|reg|dir|unc)_head/(kernel|bias)", path):
-        return (f"{m.group(1)}_head.weight", "conv") if leaf == "kernel" \
-            else (f"{m.group(1)}_head.bias", "plain")
+    if m := re.fullmatch(r"(single_)?heads/(cls|reg|dir|unc)_head/"
+                         r"(kernel|bias)", path):
+        head = f"{m.group(1) and 'single_heads.' or ''}{m.group(2)}_head"
+        return (f"{head}.weight", "conv") if leaf == "kernel" \
+            else (f"{head}.bias", "plain")
     raise KeyError(f"no port parameter for flax variable {path!r}")
 
 
@@ -161,7 +167,25 @@ _FUSION_MODULES = [
      lambda m: f"{m[1]}_net.fc.{2 * int(m[2]) - 2}", "linear"),
     (r"att_(feat|context)", lambda m: f"attention_net.linear_{m[1]}",
      "linear"),
+    # robust V2VNet's pair nets
+    (r"(pose_regression|attention)/ConvBNReLU_(\d)/Conv_0",
+     lambda m: f"{m[1]}.convs.{3 * int(m[2])}", "conv"),
+    (r"(pose_regression|attention)/ConvBNReLU_(\d)/MaskedBatchNorm_0",
+     lambda m: f"{m[1]}.convs.{3 * int(m[2]) + 1}", "bn"),
+    (r"(pose_regression|attention)/Dense_([01])",
+     lambda m: f"{m[1]}.{('fc', 'out')[int(m[2])]}", "linear"),
+    # MASH's down blocks: flax numbers them query, key, query, key, ...
+    (r"_Down_(\d+)/ConvBNReLU_(\d)/Conv_0",
+     lambda m: f"{('query', 'key')[int(m[1]) % 2]}_net.{int(m[1]) // 2}."
+               f"{3 * int(m[2])}", "conv"),
+    (r"_Down_(\d+)/ConvBNReLU_(\d)/MaskedBatchNorm_0",
+     lambda m: f"{('query', 'key')[int(m[1]) % 2]}_net.{int(m[1]) // 2}."
+               f"{3 * int(m[2]) + 1}", "bn"),
+    # the deformable fusion's offset and weight head
+    (r"Dense_0", "head", "linear"),
 ]
+# fusion parameters that are leaves of the fusion module itself
+_FUSION_LEAVES = ("no_match", "alpha")
 _COMPRESSOR_SLOTS = {"0": ("encoder.0", "encoder.1"),
                      "1": ("decoder.0", "decoder.1"),
                      "2": ("decoder.3", "decoder.4")}
@@ -248,6 +272,8 @@ def _fusion_entries(rest: str, value, nb) -> list:
     other fusions."""
     if nb is not None:
         return _v2xvit_entries(rest, value, nb)
+    if rest in _FUSION_LEAVES:
+        return [(rest, value)]
     module, leaf = rest.rsplit("/", 1)
     for pattern, name, kind in _FUSION_MODULES:
         if m := re.fullmatch(pattern, module):

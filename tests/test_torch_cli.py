@@ -211,12 +211,12 @@ def test_pose_graph_eval_cli(tmp_path):
 
 def test_refused_commands_raise(trained, tmp_path, monkeypatch):
     _, cfg, model_dir, _ = trained
-    for argv, item in ((["export", "--model_dir", model_dir], "item 11"),
+    for argv, item in ((["export", "--model_dir", model_dir], "item 9"),
                        (["inference", "--model_dir", model_dir,
-                         "--save_vis"], "item 11"),
+                         "--save_vis"], "item 9"),
                        (["inference", "--model_dir", model_dir,
-                         "--profile", "trace"], "item 11"),
-                       (["train", "-y", cfg, "--bf16"], "item 5")):
+                         "--profile", "trace"], "item 9"),
+                       (["train", "-y", cfg, "--bf16"], "item 3")):
         with pytest.raises(NotImplementedError, match=item):
             run.main(argv + CPU)
     # a directory of the JAX package's orbax checkpoints, and none at all
@@ -233,9 +233,9 @@ def test_refused_commands_raise(trained, tmp_path, monkeypatch):
     with pytest.raises(KeyError, match="second_ssfa_uncertainty"):
         run.main(["precalc", "-y", os.path.join(hypes, "opv2v",
                                                 "precalc.yaml"), *CPU])
-    for rel, item in (("opv2v/pixor_intermediate.yaml", "item 7"),
-                      ("opv2v/lss_selfatt.yaml", "item 9"),
-                      ("dairv2x/pointpillar_coalign.yaml", "item 6")):
+    for rel, item in (("opv2v/pixor_intermediate.yaml", "item 5"),
+                      ("opv2v/lss_selfatt.yaml", "item 7"),
+                      ("dairv2x/pointpillar_coalign.yaml", "item 4")):
         with pytest.raises(NotImplementedError, match=item):
             run.main(["train", "-y", os.path.join(hypes, rel), *CPU])
     # without a GPU the commands need --device cpu

@@ -41,7 +41,8 @@ def _yaml_id(path):
 
 def test_the_zoo_has_every_yaml():
     assert len(ALL_YAMLS) == 72
-    assert len(PORTED_YAMLS) == 37
+    # 37 until the port took Where2comm, MASH and robust V2VNet's 7 yamls
+    assert len(PORTED_YAMLS) == 44
 
 
 @pytest.mark.parametrize("path", ALL_YAMLS, ids=_yaml_id)

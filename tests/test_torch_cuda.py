@@ -326,3 +326,90 @@ def test_recorded_baselines_on_cuda(cuda):
     from chip_smoke import baseline_recordings
     errs = baseline_recordings()
     assert set(errs) == {"disconet", "v2vnet"}
+
+
+@pytest.mark.cuda
+def test_native_data_plane_feeds_the_card(cuda, tmp_path):
+    # the C++ reader and batcher on a fixture tree, the batches copied to
+    # the card equal to the host's
+    from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
+    from coalign_tpu_torch.data.fixtures import write_opv2v_fixture
+    from coalign_tpu_torch.data.opv2v import OPV2VBaseDataset
+    from coalign_tpu_torch.data.prefetch import prefetch
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+
+    from chip_smoke import LATE_RANGE
+    tree = write_opv2v_fixture(str(tmp_path / "tree"), SyntheticScenes(
+        num_frames=2, num_agents=2, num_objects=3, lidar_range=LATE_RANGE,
+        points_per_object=32, ground_points=300, seed=3),
+        frames_per_scenario=2)
+    base = OPV2VBaseDataset(tree, train=False)
+    batcher = IntermediateFusionBatcher(max_cav=2, max_points=200,
+                                        max_objects=8, lidar_range=LATE_RANGE)
+    host = list(batcher.batches(base, 1, shuffle=False))
+    for h, d in zip(host, prefetch(batcher.batches(base, 1, shuffle=False),
+                                   device=cuda)):
+        for key, value in h.items():
+            assert torch.equal(d[key].cpu(), torch.as_tensor(value)), key
+
+
+@pytest.mark.cuda
+def test_device_cache_replays_on_the_card(cuda):
+    from coalign_tpu_torch.data.device_cache import DeviceBatchCache
+    source = [{"x": np.full(256, i, np.float32)} for i in range(4)]
+    cache = DeviceBatchCache(max_bytes=3 * 1024, device=cuda)
+    first = list(cache.epoch(source))
+    second = list(cache.epoch(source))
+    assert cache.num_cached == 3 and cache.cached_bytes == 3 * 1024
+    assert all(b["x"].is_cuda for b in second)
+    assert all(a["x"] is b["x"] for a, b in zip(first[:3], second[:3]))
+    assert [int(b["x"][0]) for b in second] == [0, 1, 2, 3]
+
+
+@pytest.mark.cuda
+def test_pose_robust_steps_on_cuda_match_cpu(cuda):
+    # chip_smoke.py's rest_parity for robust V2VNet (stage 1) and MASH:
+    # train_parity's bounds
+    from chip_smoke import rest_parity
+    out = rest_parity()
+    assert set(out) == {"robust", "mash", "where2comm", "kd"}
+    assert "pose_loss" in out["robust"]["float64"]["terms"]
+    assert "corr_entropy" in out["mash"]["float64"]["terms"]
+    assert "kd_loss" in out["kd"]["float64"]["terms"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pointpillar_where2comm", "deform"])
+def test_fusions_rest_on_cuda_match_cpu(cuda, name):
+    # chip_smoke.py's fusions_rest phase without its timing
+    import os
+
+    from chip_smoke import GOLDEN, baseline_parity, counted_call, rest_config
+    state_dict = torch.load(os.path.join(GOLDEN, "fullscale_multiscale.pth"),
+                            map_location="cpu", weights_only=True)
+    fields, infer, batch = baseline_parity(name, state_dict,
+                                           rest_config(name))
+    assert counted_call(infer, batch)[1] == 1
+    if name == "pointpillar_where2comm":
+        assert 0 < fields["sent_pixels"] <= fields["neighbor_pixels"]
+
+
+@pytest.mark.cuda
+def test_kd_step_on_cuda_matches_cpu(cuda):
+    from chip_smoke import E2E_ARGS, E2E_LOSS, E2E_RANGE, E2E_SCENES
+    from chip_smoke import train_parity
+    from coalign_tpu_torch.data.batch import KDFusionBatcher
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    scenes = SyntheticScenes(**E2E_SCENES)
+    batch = KDFusionBatcher(max_cav=3, max_points=2500, max_objects=16,
+                            lidar_range=E2E_RANGE).assemble(
+        [scenes[0], scenes[1]])
+    args = {k: v for k, v in E2E_ARGS.items()
+            if k not in ("fusion_method", "att")}
+    out = train_parity(batch, {"core_method": "point_pillar_disconet",
+                               "args": args},
+                       {"core_method": "point_pillar_disconet_loss",
+                        "args": {**E2E_LOSS, "kd": {"weight": 1.0}}},
+                       {"core_method": "point_pillar_disconet_teacher",
+                        "args": args})
+    assert out["float64"]["terms"]["kd_loss"] > 0

@@ -112,7 +112,7 @@ def test_augmentor_matches_jax():
 def test_batcher_matches_jax(jax_numpy_batcher):
     scenes = SyntheticScenes(**SCENES)
     got = IntermediateFusionBatcher(
-        **BATCHER, augmentor=WorldAugmentor(AUGMENT, seed=5))
+        **BATCHER, augmentor=WorldAugmentor(AUGMENT, seed=5), native=False)
     want = JBATCH.IntermediateFusionBatcher(
         **BATCHER, augmentor=JA.WorldAugmentor(AUGMENT, seed=5))
     batches = list(zip(got.batches(scenes, 2), want.batches(scenes, 2)))
@@ -213,7 +213,7 @@ def test_b2_inference_matches_jax_frame_by_frame(jax_numpy_batcher):
                              agent_spread=5.0, seed=9)
     batch = IntermediateFusionBatcher(
         max_cav=3, max_points=1200, max_objects=8,
-        lidar_range=TINY_ARGS["lidar_range"]).assemble(
+        lidar_range=TINY_ARGS["lidar_range"], native=False).assemble(
         [scenes[0], scenes[1]])
     flagship = {"core_method": "point_pillar_baseline_multiscale",
                 "args": TINY_ARGS}

@@ -230,7 +230,7 @@ def _params(root, fusion, dataset="opv2v"):
 def test_build_dataset_batches_match_jax(jax_tree, jax_numpy_batcher, fusion,
                                          train):
     params = _params(jax_tree, fusion)
-    base, batcher = build_dataset(params, train=train)
+    base, batcher = build_dataset(params, train=train, native=False)
     jbase, jbatcher = jax_build_dataset(params, train=train)
     assert type(batcher).__name__ == type(jbatcher).__name__
     assert (batcher.augmentor is not None) == train
@@ -249,21 +249,21 @@ def test_build_dataset_batches_match_jax(jax_tree, jax_numpy_batcher, fusion,
 
 def test_v2xset_reads_as_opv2v(jax_tree, jax_numpy_batcher):
     base, batcher = build_dataset(_params(jax_tree, "intermediate", "v2xset"),
-                                  train=False)
+                                  train=False, native=False)
     assert isinstance(base, V2XSETBaseDataset)
     _assert_same_frames(base, JOPV2V.V2XSETBaseDataset(jax_tree, train=False))
 
 
 def test_unported_datasets_and_inputs_raise(jax_tree, scenes, tmp_path):
-    for name, item in (("dairv2x", "item 6"), ("v2xsim", "item 6")):
+    for name, item in (("dairv2x", "item 4"), ("v2xsim", "item 4")):
         with pytest.raises(NotImplementedError, match=item):
             build_dataset(_params(jax_tree, "intermediate", name))
     cam = dict(_params(jax_tree, "intermediate"), input_source=["camera"])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         build_dataset(cam)
     with pytest.raises(KeyError, match="unknown dataset"):
         build_dataset(_params(jax_tree, "intermediate", "kitti"))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         write_opv2v_fixture(str(tmp_path / "c"), scenes, with_cameras=True)
     with pytest.raises(FileNotFoundError):
         OPV2VBaseDataset(str(tmp_path))

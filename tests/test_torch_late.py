@@ -117,8 +117,8 @@ def _assert_same_batch(got, want):
 def test_late_batcher_matches_jax():
     scenes, jscenes = SyntheticScenes(**SCENES), JaxScenes(**SCENES)
     frames = [scenes[i] for i in range(3)]
-    got, want = LateFusionBatcher(**BATCHER), JBATCH.LateFusionBatcher(
-        **BATCHER)
+    got, want = LateFusionBatcher(**BATCHER, native=False), \
+        JBATCH.LateFusionBatcher(**BATCHER)
     train = got.assemble_train(frames)
     _assert_same_batch(train, want.assemble_train(frames))
     assert train["points"].shape == (3, 1, 600, 4)
@@ -139,7 +139,7 @@ def test_late_batcher_matches_jax():
 
 def test_train_mode_batches_match_jax():
     scenes, jscenes = SyntheticScenes(**SCENES), JaxScenes(**SCENES)
-    got = LateFusionBatcher(**BATCHER, train=True)
+    got = LateFusionBatcher(**BATCHER, train=True, native=False)
     want = JBATCH.LateFusionBatcher(**BATCHER, train=True)
     pairs = list(zip(got.batches(scenes, 2), want.batches(jscenes, 2)))
     assert len(pairs) == 2
@@ -148,7 +148,7 @@ def test_train_mode_batches_match_jax():
         assert bg["agent_mask"].shape == (2, 1)
     # the train flag of the intermediate batcher changes nothing: it has no
     # assemble_train
-    inter = IntermediateFusionBatcher(**BATCHER, train=True)
+    inter = IntermediateFusionBatcher(**BATCHER, train=True, native=False)
     jinter = JBATCH.IntermediateFusionBatcher(**BATCHER, train=True)
     for bg, bw in zip(inter.batches(scenes, 2), jinter.batches(jscenes, 2)):
         _assert_same_batch(bg, bw)
@@ -158,13 +158,14 @@ def test_train_mode_batches_match_jax():
 def test_early_batcher_matches_jax():
     scenes = SyntheticScenes(**SCENES)
     frames = [scenes[i] for i in range(3)]
-    got = EarlyFusionBatcher(**BATCHER).assemble(frames)
+    got = EarlyFusionBatcher(**BATCHER, native=False).assemble(frames)
     want = JBATCH.EarlyFusionBatcher(**BATCHER).assemble(frames)
     _assert_same_batch(got, want)
     assert got["points"].shape == (3, 1, 1800, 4)
     assert (got["shipped_points"] > 0).all()
     # projection moved the non-ego points, not the ego's
-    inter = IntermediateFusionBatcher(**BATCHER).assemble(frames)
+    inter = IntermediateFusionBatcher(**BATCHER, native=False).assemble(
+        frames)
     np.testing.assert_array_equal(got["points"][:, 0, :600],
                                   inter["points"][:, 0])
     assert not np.allclose(got["points"][:, 0, 600:1200],
@@ -274,7 +275,7 @@ def test_ap_through_the_dispatch_matches_jax_evaluate(trained, fusion):
                         JaxScenes(**SCENES), trained["anchors"], POST,
                         batch_size=2, fusion_method=fusion)
     frames = [dict(b, gt_corners=gt_corners(b)) for b in
-              LateFusionBatcher(**batcher_args).batches(
+              LateFusionBatcher(**batcher_args, native=False).batches(
                   SyntheticScenes(**SCENES), 2, shuffle=False,
                   drop_last=False)]
     got = evaluate(make_fusion_infer_fn(trained["model"], trained["anchors"],

@@ -201,7 +201,7 @@ def test_noise_sweep_matches_jax(flagship, corrected, monkeypatch):
     got = noise_sweep(
         flagship["model"],
         lambda p, r: IntermediateFusionBatcher(**SWEEP_BATCHER, pos_std=p,
-                                               rot_std=r),
+                                               rot_std=r, native=False),
         SyntheticScenes(**SCENES), anchors, POST,
         stage1=oracle if corrected else None,
         align_cfg=BoxAlignConfig(**cfg), levels=LEVELS, batch_size=2,

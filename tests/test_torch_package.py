@@ -33,7 +33,7 @@ def _port_sources():
     for root, dirs, files in os.walk(PORT):
         dirs[:] = [d for d in dirs if d != "_build"]    # build output
         for name in files:
-            if name.endswith((".py", ".cu", ".cuh")):
+            if name.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(root, name)
     yield os.path.join(REPO, "chip_smoke.py")
 
