@@ -106,6 +106,26 @@ Phases, each printing one JSON line with its elapsed seconds:
              frozen teacher): ms, peak memory, loss terms; rest_parity,
              their tiny twins' CUDA steps against the CPU (train_parity's
              bounds).
+ 18. second  one line for each of SECOND_YAMLS (the OPV2V yamls SECOND
+             and SECOND_uncertainty, late; SECOND_early; second_intermediate
+             and voxelnet_intermediate) at their full widths and grids on
+             5 synthetic agents of 30,000 points, B=1: CUDA against the
+             CPU with seeded weights (the cls head rescaled to spread the
+             scores) and, for SECOND and SECOND_early, with
+             second_ssfa.pth, which then serves (head maps within 2e-3 of
+             each map's largest, the same box set); voxels and overflow an
+             agent, the strided stages' sites kept and dropped at the cap,
+             IoU launches a request (2 late, else 1), peak memory, 20
+             timed requests, a profile with the stage/voxelize,
+             backbone_3d, bev_trunk, fusion and post_process ranges, and
+             the 3D backbone's device time by part (backbone3d_breakdown);
+     second_recordings   second.pth and second_intermediate.pth on CUDA
+             against their recordings, dense twin and sparse backbone;
+     second_train   B=4 full-width steps of second_intermediate.yaml and
+             SECOND.yaml (the yamls' loss, Adam and schedule, the 32,000
+             train cap): ms, peak memory, voxels a frame;
+     second_parity   a tiny SECOND-SSFA's step on the sparse backbone,
+             CUDA against the CPU (train_parity's bounds).
 Then one JSON line describing each kernel (with its launches on each
 path above), timed at five shapes (the main
 path's NMS input; that input stacked 8 times, a B=8 batch's one launch; 8
@@ -973,11 +993,13 @@ def _tiny_stage1_batch() -> dict:
 
 def _one_sgd_step(device: str, dtype: torch.dtype, batch: dict,
                   model_cfg: dict = E2E_FLAGSHIP, loss_cfg: dict = E2E_LOSS,
-                  teacher_cfg: dict | None = None):
+                  teacher_cfg: dict | None = None,
+                  anchor_args: dict = E2E_ANCHORS):
     """One make_train_step of a tiny model (the flagship by default; seed
     0) with SGD (lr 1e-2) on ``device`` in ``dtype``, with a frozen teacher
-    of ``teacher_cfg`` (seed 1) where given: (loss terms, gradients, state
-    dict after the step), on the CPU in float64."""
+    of ``teacher_cfg`` (seed 1) where given, its labels on ``anchor_args``:
+    (loss terms, gradients, state dict after the step), on the CPU in
+    float64."""
     from coalign_tpu_torch.loss import build_loss
     from coalign_tpu_torch.models.zoo import build_model
     from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
@@ -987,7 +1009,7 @@ def _one_sgd_step(device: str, dtype: torch.dtype, batch: dict,
                build_model(teacher_cfg, device=device, seed=1).to(dtype))
     opt = torch.optim.SGD(model.parameters(), lr=1e-2)
     terms = make_train_step(model, build_loss(loss_cfg), make_anchor_spec(
-        E2E_ANCHORS, E2E_POSTPROCESS["target_args"]), opt,
+        anchor_args, E2E_POSTPROCESS["target_args"]), opt,
         device=device, teacher=teacher)(batch)
     return ({k: float(v) for k, v in terms.items()},
             {k: p.grad.detach().double().cpu()
@@ -1019,8 +1041,8 @@ def _small_refs(want: dict) -> list:
 
 
 def train_parity(batch: dict | None = None, model_cfg: dict = E2E_FLAGSHIP,
-                 loss_cfg: dict = E2E_LOSS,
-                 teacher_cfg: dict | None = None) -> dict:
+                 loss_cfg: dict = E2E_LOSS, teacher_cfg: dict | None = None,
+                 anchor_args: dict = E2E_ANCHORS) -> dict:
     """The CUDA step against the CPU step on the same seeded weights and
     batch (by default the tiny flagship on _tiny_parity_batch). In
     float32, the loss terms within 1e-4 relative and the running
@@ -1042,9 +1064,11 @@ def train_parity(batch: dict | None = None, model_cfg: dict = E2E_FLAGSHIP,
     out = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-6)):
         cpu_terms, cpu_grads, cpu_state = _one_sgd_step(
-            "cpu", dtype, batch, model_cfg, loss_cfg, teacher_cfg)
+            "cpu", dtype, batch, model_cfg, loss_cfg, teacher_cfg,
+            anchor_args)
         terms, grads, state = _one_sgd_step("cuda", dtype, batch, model_cfg,
-                                            loss_cfg, teacher_cfg)
+                                            loss_cfg, teacher_cfg,
+                                            anchor_args)
         name = str(dtype).split(".")[-1]
         running = [k for k in cpu_state if "running_" in k]
         zero = [k for k in ZERO_GRADS if k in cpu_grads]
@@ -2608,6 +2632,531 @@ def sweep_check(flagship, stage1, device=None) -> dict:
     return out
 
 
+# The SECOND family at full width: five OPV2V yamls at their own
+# widths and grids (41x800x2816 at 0.1 m, 41x832x2816 for
+# second_intermediate.yaml, 10x200x704 at 0.4 m for VoxelNet), on synthetic
+# scenes of 5 agents with 30,000 points an agent in range (the batchers'
+# cap, as the other phases). SECOND.yaml and SECOND_early.yaml load
+# tests/golden/second_ssfa.pth, which has their widths (3D out 64, SSFA
+# 128), and serve with it; every yaml's boxes are held with seeded weights
+# (second_parity).
+SECOND_YAMLS = ("SECOND", "SECOND_early", "second_intermediate",
+                "voxelnet_intermediate", "SECOND_uncertainty")
+SECOND_CHECKPOINTED = ("SECOND", "SECOND_early")
+SECOND_SCENES = dict(num_agents=5, num_objects=20, points_per_object=800,
+                     ground_points=60000, agent_spread=30.0, seed=1)
+SECOND_TRAIN = ("second_intermediate", "SECOND")
+SECOND_TRAIN_STEPS = (1, 3)               # warm-up, timed
+# the recordings of tests/test_ckpt_import.py (generate_fixtures.py
+# SECOND_ARGS, which imports nothing of JAX but lives beside the tests)
+SECOND_REC_ARGS = {
+    "voxel_size": [0.4, 0.4, 0.1],
+    "lidar_range": [-12.8, -12.8, -3.0, 12.8, 12.8, 1.0],
+    "anchor_number": 2,
+    "backbone_3d": {"num_features_out": 128},
+    "base_bev_backbone": {"layer_nums": [2, 2], "layer_strides": [1, 2],
+                          "num_filters": [64, 128], "upsample_strides": [1, 2],
+                          "num_upsample_filter": [128, 128]},
+}
+# the tiny SECOND-SSFA of second_parity: the E2E scenes at 0.5 m voxels,
+# the sparse backbone (the yamls' path) at a cap of 4096 voxels a frame
+SECOND_TINY_ARGS = {
+    "voxel_size": [0.5, 0.5, 0.5], "lidar_range": E2E_RANGE,
+    "anchor_number": 2,
+    "backbone_3d": {"num_features_out": 16, "sparse": True,
+                    "max_voxels": 4096},
+    "ssfa": {"feature_num": 32}, "use_iou_head": True,
+    "dir_args": E2E_ARGS["dir_args"]}
+SECOND_TINY_ANCHORS = {**E2E_ANCHORS, "feature_stride": 8}
+
+
+def second_yaml(name: str) -> dict:
+    """The OPV2V yaml ``name`` through its parser (read in place)."""
+    from coalign_tpu_torch.config.yaml_utils import load_yaml
+    return load_yaml(os.path.join(HYPES, f"{name}.yaml"))
+
+
+def second_model(name: str, device, checkpoint: bool = False) -> tuple:
+    """(the yaml's model at full width on ``device``, a note on its
+    weights): seeded (seed 0), or with ``checkpoint`` second_ssfa.pth,
+    loaded strictly: its widths are SECOND_CHECKPOINTED's (a strict load
+    checks every shape), and it has a direction head, so their model args
+    get the postprocess's dir_args."""
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.utils.weights import load_pth
+    y = second_yaml(name)
+    cfg = y["model"]
+    if not checkpoint:
+        return build_model(cfg, device=device, seed=0), "seeded"
+    cfg = {**cfg, "args": {**cfg["args"],
+                           "dir_args": y["postprocess"]["dir_args"]}}
+    model = load_pth(build_model(cfg, device=device, seed=0),
+                     os.path.join(GOLDEN, "second_ssfa.pth"))
+    sd = model.state_dict()
+    shapes = {k: list(sd[k].shape) for k in (
+        "spconv_block.conv_out.0.weight", "ssfa.bottom_up_block_0.1.weight",
+        "head.conv_cls.weight", "head.conv_dir.weight")}
+    return model, f"second_ssfa.pth, strict; shapes {shapes}"
+
+
+def second_batch(name: str, frames: int = 1, train: bool = False) -> dict:
+    """``frames`` synthetic frames at the yaml's range, through the batcher
+    of its fusion: intermediate, early (the 5 agents merged into one
+    cloud) or late (late_transforms' per-agent transforms; in training one
+    agent a frame, assemble_train)."""
+    from coalign_tpu_torch.data.batch import (EarlyFusionBatcher,
+                                              IntermediateFusionBatcher,
+                                              LateFusionBatcher)
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    y = second_yaml(name)
+    lr = y["preprocess"]["cav_lidar_range"]
+    scenes = SyntheticScenes(num_frames=frames, lidar_range=lr,
+                             **SECOND_SCENES)
+    kind = y["fusion"]["core_method"]
+    cls = {"late": LateFusionBatcher, "early": EarlyFusionBatcher}.get(
+        kind, IntermediateFusionBatcher)
+    batcher = cls(max_cav=5, max_points=30000, max_objects=100,
+                  comm_range=70.0, lidar_range=lr)
+    frames = [scenes[i] for i in range(frames)]
+    if train and kind == "late":
+        return batcher.assemble_train(frames)
+    return batcher.assemble(frames)
+
+
+def second_voxels(model, batch: dict) -> dict:
+    """Occupied voxels an agent frame of the batch, and those beyond the
+    model's cap (ops/sparse_conv.occupancy_overflow; VoxelNet has no
+    cap)."""
+    from coalign_tpu_torch.ops.sparse_conv import occupancy_overflow
+    points = torch.as_tensor(batch["points"]).flatten(0, 1).cuda()
+    mask = torch.as_tensor(batch["point_mask"]).flatten(0, 1).cuda()
+    occupied = occupancy_overflow(points, mask, model.spec, 0)
+    real = np.asarray(batch["agent_mask"]).reshape(-1)
+    out = {"points_per_agent": [int(m) for m in mask.sum(1)[real].tolist()],
+           "occupied_voxels_per_agent": occupied[real].tolist()}
+    if hasattr(model, "voxel_cap"):
+        cap = model.voxel_cap()
+        over = occupancy_overflow(points, mask, model.spec, cap)[real]
+        out.update(voxel_cap=cap,
+                   voxels_per_agent=torch.clamp(
+                       occupied[real], max=cap).tolist(),
+                   overflow_per_agent=over.tolist(),
+                   sparse_backbone=model.use_sparse)
+        if model.use_sparse:
+            out["strided_sites_per_agent"] = strided_sites(
+                model, points, mask, cap, real)
+    return out
+
+
+def strided_sites(model, points, mask, cap: int, real) -> dict:
+    """Active sites of the sparse backbone's three strided outputs, each
+    table capped at ``cap`` rows as its input's (downsample_active drops
+    the largest keys beyond it): for stages 2, 3 and 4, the sites kept
+    and those dropped an agent frame (the uncapped set has at most 8
+    sites an input)."""
+    from coalign_tpu_torch.ops.sparse_conv import (downsample_active,
+                                                   sparse_mean_voxelize)
+    grid = sparse_mean_voxelize(points, mask, model.spec, cap, pad_z=1)
+    backbone = getattr(model, model.backbone_name)
+    out = {}
+    for i, block in enumerate(backbone.stages):
+        kw = dict(stride=block[0].stride, pad=block[0].padding)
+        full = downsample_active(grid, max_out=8 * grid.keys.shape[1], **kw)
+        grid = downsample_active(grid, **kw)
+        kept = grid.valid.sum(1)
+        out[f"stage{i + 2}"] = {"kept": kept[real].tolist(), "dropped": (
+            full.valid.sum(1) - kept)[real].tolist()}
+    return out
+
+
+def _map_errors(got: dict, want: dict) -> dict:
+    """Per head map: the largest |CUDA - CPU|, the map's largest magnitude
+    and their ratio."""
+    out = {}
+    for k, v in want.items():
+        err = (got[k].cpu() - v).abs().max().item()
+        scale = v.abs().max().item()
+        out[k] = {"max_abs_err": err, "max_abs": scale,
+                  "rel_err": err / max(scale, 1e-30)}
+    return out
+
+
+def separated_threshold(scores: torch.Tensor, floor: float,
+                        least: int = 48) -> tuple:
+    """A score threshold at which two devices' box sets can be compared:
+    the yaml's (``floor``) when it leaves fewer than 512 candidates a frame
+    (the top-K prefilter's size), ``least`` at least in all, and no score
+    within 1e-3 of it (the devices' scores differ by ~1e-5); else, of the
+    midpoints between consecutive distinct scores that do so, the one in
+    the widest gap (above or below the yaml's, as the baselines phase
+    lowers its threshold until 10 boxes remain), at least 1e-3 from any
+    score.
+    ``scores`` (F, K) are sigmoid scores. Returns (threshold, distance of
+    the nearest score to it)."""
+    per_frame = torch.sort(scores, dim=1).values
+    k = scores.shape[1]
+
+    def counts(t):            # (F, T) candidates above each threshold
+        return k - torch.searchsorted(
+            per_frame, t.expand(scores.shape[0], -1).contiguous(),
+            right=True)
+
+    def fits(t):
+        c = counts(t)
+        return (c.max(0).values < 512) & (c.sum(0) >= least)
+
+    t = torch.tensor([floor], dtype=scores.dtype)
+    margin = float((scores - floor).abs().min())
+    if bool(fits(t)[0]) and margin > 1e-3:
+        return floor, margin
+    values = torch.unique(scores)                     # ascending
+    mids = (values[:-1] + values[1:]) / 2
+    gaps = (values[1:] - values[:-1]) / 2
+    ok = fits(mids[None])
+    check(bool(ok.any()), "no score threshold leaves 1-511 candidates: "
+          f"above {floor} {counts(t)[:, 0].tolist()}, each frame's top "
+          f"{per_frame[:, -3:].tolist()}")
+    best = int(torch.argmax(torch.where(ok, gaps, -1.0)))
+    check(float(gaps[best]) > 1e-3,
+          f"no separated score threshold: gap {float(gaps[best]):.2e}")
+    return float(mids[best]), float(gaps[best])
+
+
+def spread_cls_scores(models: dict, cls_preds: torch.Tensor) -> list:
+    """Rescale the cls head of both ``models`` ({device: model}) so that
+    each anchor's most frequent logit in ``cls_preds`` (B, A, H, W), the
+    empty cells' (their features are all alike), becomes -5 (score 0.0067)
+    and its 64 x B-th largest 0 (score 0.5), where the sigmoid spreads
+    scores most. A seeded SECOND's subm convs sum few
+    active taps, so each layer shrinks its features: its logits are ~1e-6
+    and every score ties at 0.5 within float32, the empty cells' tying
+    thousands of anchors at the top-K prefilter's edge. (Setting the
+    norms' statistics from the batch instead amplified the devices'
+    rounding through channels of near-zero variance: cls maps 0.18 apart
+    on the card.) Returns each anchor's (scale, bias shift)."""
+    logits = cls_preds.transpose(0, 1).flatten(1).cpu()       # (A, ...)
+    empty = torch.mode(logits, dim=1).values
+    rank = 64 * cls_preds.shape[0]
+    kth = torch.topk(logits, rank, dim=1).values[:, -1]
+    scale = 5.0 / (kth - empty).clamp_min(1e-30)
+    out = []
+    for model in models.values():
+        conv = (model.head.conv_cls if hasattr(model, "head")
+                else model.cls_head)
+        with torch.no_grad():
+            s = scale.to(conv.weight.device)
+            # new logit = scale * (logit - empty) - 5
+            shift = -5.0 - s * empty.to(s.device)
+            conv.weight.mul_(s[:, None, None, None])
+            conv.bias.mul_(s).add_(shift)
+        out = [[float(a), float(b)] for a, b in zip(scale, shift.cpu())]
+    return out
+
+
+def _second_pair(name: str, batch: dict, checkpoint: bool) -> dict:
+    """second_model on CUDA and on the CPU (seeded ones with
+    spread_cls_scores' cls head), and the batch through both: head maps
+    within 2e-3 of the map's largest magnitude (the baselines phase's
+    2e-3, relative: the seeded maps but cls are ~1e-6, second_ssfa.pth's
+    ~4e4), and the box sets of the yaml's infer fn at match_box_sets'
+    bounds, at separated_threshold's score (chosen on the card's scores;
+    the checkpoint's at the yaml's). The CPU runs its
+    infer fn once, its maps taken by a forward hook. Returns the fields,
+    the CUDA infer fn and the CUDA model."""
+    from coalign_tpu_torch.inference import make_fusion_infer_fn, to_device
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.tools.run import postprocess_cfg
+    y = second_yaml(name)
+    kind = y["fusion"]["core_method"]
+    built = {dev: second_model(name, dev, checkpoint)
+             for dev in ("cuda", "cpu")}
+    models = {dev: m for dev, (m, _) in built.items()}
+    shift = None
+    if not checkpoint:
+        with torch.no_grad():
+            shift = spread_cls_scores(
+                models, models["cuda"](to_device(batch, "cuda"))["cls_preds"])
+    anchors = generate_anchor_box(y["postprocess"]["anchor_args"])
+    with torch.no_grad():
+        cuda_maps = models["cuda"](to_device(batch, "cuda"))
+    check(tuple(cuda_maps["cls_preds"].shape[-2:]) == anchors.shape[:2],
+          f"{name}: maps {tuple(cuda_maps['cls_preds'].shape)} against "
+          f"anchors {anchors.shape}")
+    for key, out in cuda_maps.items():
+        check(bool(torch.isfinite(out).all()), f"{name}: {key} not finite")
+    scores = torch.sigmoid(cuda_maps["cls_preds"].permute(0, 2, 3, 1)
+                           .flatten(1)).cpu()
+    post = postprocess_cfg(y)
+    threshold, margin = post["target_args"]["score_threshold"], None
+    if not checkpoint:          # the checkpoint's scores are all 0 or 1
+        threshold, margin = separated_threshold(scores, threshold)
+    post = {**post, "target_args": {**post["target_args"],
+                                    "score_threshold": threshold}}
+    infer, ref = (make_fusion_infer_fn(models[dev], anchors, post, kind,
+                                       device=dev) for dev in ("cuda", "cpu"))
+    cpu_maps = {}
+    hook = models["cpu"].register_forward_hook(
+        lambda mod, inputs, out: cpu_maps.update(out))
+    t = time.perf_counter()
+    want = ref(batch)
+    cpu_s = time.perf_counter() - t
+    hook.remove()
+    errs = _map_errors(cuda_maps, cpu_maps)
+    for key, e in errs.items():
+        check(e["rel_err"] <= 2e-3,
+              f"{name} {key}: CUDA vs CPU {e}")
+    counts, worst_iou, worst_ds = same_box_sets(infer(batch), want)
+    return {"weights": built["cuda"][1], "cls_scale_shift": shift,
+            "map_err": errs,
+            "cpu_request_s": cpu_s, "score_threshold": threshold,
+            "threshold_margin": margin, "boxes": counts,
+            "min_matched_iou": worst_iou,
+            "max_score_diff": worst_ds}, infer, models["cuda"]
+
+
+def second_parity(name: str, card) -> tuple:
+    """The yaml ``name``'s model at full width, B = 1, CUDA against the CPU
+    (_second_pair) with seeded weights, and for SECOND_CHECKPOINTED also
+    with second_ssfa.pth's, which then serve: its random deep trunk
+    saturates every logit (|x| ~ 1e4) and decodes no finite box, so the
+    box sets of that pair are empty on both devices and the seeded pair's
+    are the ones that test the boxes (at least one box). One request's IoU
+    launches (1; 2 for late fusion) and peak memory. Returns (the fields,
+    the serving infer fn, the batch, its CUDA model)."""
+    from coalign_tpu_torch.runtime import configure_cuda
+    configure_cuda()
+    y = second_yaml(name)
+    kind = y["fusion"]["core_method"]
+    batch = second_batch(name)
+    seeded, infer, model = _second_pair(name, batch, False)
+    check(seeded["boxes"][0] > 0, f"no box in the seeded {name} request")
+    fields = {"config": name, "fusion": kind,
+              "core_method": y["model"]["core_method"],
+              "grid": [model.spec.nz, model.spec.ny, model.spec.nx],
+              "agents": int(np.asarray(batch["agent_mask"]).sum()),
+              **second_voxels(model, batch), "seeded": seeded}
+    if name in SECOND_CHECKPOINTED:
+        del infer, model
+        fields["checkpoint"], infer, model = _second_pair(name, batch, True)
+    infer(batch)                                  # cuDNN autotunes
+    torch.cuda.reset_peak_memory_stats()
+    _, launches = counted_call(infer, batch)
+    want = 2 if kind == "late" else 1
+    check(launches == want, f"{launches} IoU launches in a {name} request")
+    fields.update(rotated_iou_launches=launches,
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return fields, infer, batch, model
+
+
+# kernel-name patterns of the 3D backbone's parts, tried in this order
+BACKBONE3D_PARTS = (
+    ("rulebooks_and_active_sets", ("searchsorted", "sort", "radix", "scan",
+                                    "cumsum", "unique", "reduce_kernel")),
+    ("gathers", ("index", "gather", "scatter", "cat")),
+    ("dense_convs", ("conv", "fprop", "dgrad", "wgrad", "winograd")),
+    ("products", ("gemm", "cutlass", "matmul", "splitk")),
+)
+
+
+def backbone3d_breakdown(model, batch: dict, reps: int = 3) -> dict:
+    """Where the 3D backbone's device time goes: torch.profiler over
+    ``reps`` calls of the model's 3D backbone alone on the batch's voxel
+    grid (sparse or the dense twin's, or VoxelNet's middle convs), each
+    kernel's device time summed into BACKBONE3D_PARTS by its name (the
+    rest: norms, ReLU, masks, copies), ms a call."""
+    from coalign_tpu_torch.inference import to_device
+    from coalign_tpu_torch.ops.sparse_conv import sparse_mean_voxelize
+    b = to_device(batch, "cuda")
+    points = b["points"].flatten(0, 1)
+    mask = b["point_mask"].flatten(0, 1)
+    with torch.no_grad():
+        if hasattr(model, "cml"):                    # VoxelNet
+            grid = model._svfe(b)
+
+            def call():
+                x = grid
+                for conv in model.cml:
+                    x = conv(x)
+        else:
+            backbone = getattr(model, model.backbone_name)
+            check(model.use_sparse, "a full-width SECOND runs sparse")
+            grid = sparse_mean_voxelize(points, mask, model.spec,
+                                        model.voxel_cap(), pad_z=1)
+
+            def call():
+                backbone(grid)
+        call()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+    parts = {name: 0.0 for name, _ in BACKBONE3D_PARTS}
+    parts["other"] = 0.0
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = e.key.lower()
+        part = next((name for name, pats in BACKBONE3D_PARTS
+                     if any(p in key for p in pats)), "other")
+        parts[part] += e.self_device_time_total / reps / 1e3
+        launches += e.count
+    return {"device_ms": parts, "total_ms": sum(parts.values()),
+            "launches": launches / reps}
+
+
+def second_check(card) -> dict:
+    """The second phase, one line a yaml of SECOND_YAMLS: second_parity,
+    20 timed requests and a profile (timed_requests). Returns each yaml's
+    IoU launches a request."""
+    launches = {}
+    for name in SECOND_YAMLS:
+        fields, infer, batch, model = second_parity(name, card)
+        launches[name] = fields["rotated_iou_launches"]
+        phase("second", **fields, **timed_requests(infer, batch),
+              backbone_3d=backbone3d_breakdown(model, batch), card=card)
+        del infer, batch, model
+        torch.cuda.empty_cache()
+    return launches
+
+
+def second_recordings() -> dict:
+    """The second_recordings phase: second.pth and second_intermediate.pth
+    on CUDA against their recordings, through load_pth, on the dense twin
+    and on the sparse backbone, within tests/test_ckpt_import.py's bounds
+    (rtol 2e-3, atol 1e-3; rtol 5e-3 for the intermediate). Returns the
+    largest errors relative to those bounds."""
+    from coalign_tpu_torch.inference import to_device
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.runtime import configure_cuda
+    from coalign_tpu_torch.utils.weights import load_pth
+    configure_cuda()                      # full float32: TF32 off
+    cases = {"second": ("second", SECOND_REC_ARGS, ("points",), 2e-3),
+             "second_intermediate": ("second_intermediate",
+                                     {**SECOND_REC_ARGS,
+                                      "fusion_method": "att"},
+                                     ("points0", "points1"), 5e-3)}
+    out = {}
+    for name, (core, args, keys, rtol) in cases.items():
+        io = np.load(os.path.join(GOLDEN, f"{name}_io.npz"))
+        batch = golden_batch(io, keys, None, 512)
+        # one agent a frame, as the recordings traced them
+        batch = {"points": batch["points"].transpose(1, 0, 2, 3),
+                 "point_mask": batch["point_mask"].transpose(1, 0, 2),
+                 "agent_mask": np.ones((len(keys), 1), bool),
+                 "pairwise_t_matrix": np.tile(np.eye(4, dtype=np.float32),
+                                              (len(keys), 1, 1, 1, 1))}
+        for sparse in (False, True):
+            model = build_model({"core_method": core, "args": {
+                **args, "backbone_3d": {**args["backbone_3d"],
+                                        "sparse": sparse}}})
+            check(model.use_sparse == sparse, f"{name} backbone form")
+            load_pth(model, os.path.join(GOLDEN, f"{name}.pth"))
+            with torch.no_grad():
+                maps = model(to_device(batch, "cuda"))
+            worst = 0.0
+            for key in ("cls_preds", "reg_preds"):
+                got = maps[key].cpu().numpy()
+                ratio = np.abs(got - io[key]) / (1e-3 + rtol * np.abs(io[key]))
+                worst = max(worst, float(ratio.max()))
+            check(worst <= 1.0, f"{name} sparse={sparse}: {worst:.3f} of "
+                  f"the bound")
+            out[f"{name}_{'sparse' if sparse else 'dense'}"] = worst
+    return out
+
+
+def second_train(card) -> dict:
+    """The second_train phase, one line a yaml of SECOND_TRAIN: the yaml's
+    model from scratch (seed 0) at full width with its loss, Adam and
+    schedule on B = 4 synthetic frames (second_intermediate: 4 frames of 5
+    agents, 20 agent frames; SECOND.yaml, late: one agent a frame), the
+    train cap max_voxel_train 32,000; SECOND_TRAIN_STEPS warm-up and timed
+    steps (CUDA events): ms a step, the peak memory of the warm-up (model,
+    optimizer state, cuDNN's autotuning) and of the timed steps, the
+    voxels and overflow a frame, the first and last loss terms, every term
+    finite, no IoU launch.
+    A step that does not fit on the card is recorded, not cut. Returns the
+    IoU launches a train step."""
+    from coalign_tpu_torch.data.prefetch import prefetch
+    from coalign_tpu_torch.loss import build_loss
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
+    from coalign_tpu_torch.train import build_optimizer, make_train_step
+    launches = {}
+    for name in SECOND_TRAIN:
+        y = second_yaml(name)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(y["model"], seed=0)
+        opt, sched = build_optimizer(model.parameters(), y["optimizer"],
+                                     y.get("lr_scheduler"))
+        post = y["postprocess"]
+        step = make_train_step(model, build_loss(y["loss"]),
+                               make_anchor_spec(post["anchor_args"],
+                                                post["target_args"]),
+                               opt, sched)
+        host = second_batch(name, TRAIN_BATCH, train=True)
+        (batch,) = list(prefetch(iter([host])))
+        model.train()
+        voxels = second_voxels(model, host)
+        warm, timed = SECOND_TRAIN_STEPS
+        peaks = []                 # the warm-up's (cuDNN autotunes there)
+        try:
+            def run():
+                terms = [step(batch) for _ in range(warm)]
+                torch.cuda.synchronize()
+                peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                terms += [step(batch) for _ in range(timed)]
+                end.record()
+                return terms, start, end
+
+            (terms, start, end), n_iou = counted_call(run)
+        except torch.cuda.OutOfMemoryError as e:
+            phase("second_train", config=name, batch=TRAIN_BATCH,
+                  fits=False, error=str(e)[:300],
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  **voxels, card=card)
+            del model, opt, step, batch
+            continue
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(all(np.isfinite(float(v)) for t in terms for v in t.values()),
+              f"{name}: a loss term is not finite")
+        check(n_iou == 0, f"{name}: {n_iou} IoU launches in a train step")
+        ms = start.elapsed_time(end) / timed
+        launches[name] = n_iou
+        phase("second_train", config=name, batch=TRAIN_BATCH, fits=True,
+              agent_frames=int(np.asarray(host["agent_mask"]).sum()),
+              timed_steps=timed, ms_per_step=ms,
+              frames_per_s=TRAIN_BATCH * 1000.0 / ms,
+              warmup_peak_mem_gib=peaks[0], peak_mem_gib=peak,
+              **voxels,
+              first_step={k: float(v) for k, v in terms[0].items()},
+              last_step={k: float(v) for k, v in terms[-1].items()},
+              card=card)
+        del model, opt, step, batch, terms
+    torch.cuda.empty_cache()
+    return launches
+
+
+def second_step_parity() -> dict:
+    """train_parity of SECOND_TINY_ARGS' second_ssfa (the sparse backbone)
+    on _tiny_stage1_batch (one agent a frame) with the yaml's
+    point_pillar_loss: the CUDA step against the CPU step."""
+    return train_parity(
+        _tiny_stage1_batch(),
+        {"core_method": "second_ssfa", "args": SECOND_TINY_ARGS},
+        {"core_method": "point_pillar_loss", "args": E2E_LOSS},
+        anchor_args=SECOND_TINY_ANCHORS)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -2821,6 +3370,13 @@ def main() -> int:
     rest_train_launches = train_rest(card)
     phase("rest_parity", **rest_parity())
 
+    # 18. the SECOND family at full width: serving, the recordings on the
+    # card, training and the tiny step against the CPU's
+    second_launches = second_check(card)
+    phase("second_recordings", bound_ratio=second_recordings(), card=card)
+    second_train_launches = second_train(card)
+    phase("second_parity", **second_step_parity())
+
     # 15. the on-disk data path and the run CLI at full width
     disk = disk_check(card, per_call, native_build)
 
@@ -2863,6 +3419,8 @@ def main() -> int:
             stage1_train["launches_per_train_step"],
         "launches_per_fusions_rest_request": rest_launches,
         "launches_per_rest_train_step": rest_train_launches,
+        "launches_per_second_request": second_launches,
+        "launches_per_second_train_step": second_train_launches,
         **disk,
         "max_abs_err": main["max_abs_err"],
         "max_abs_diff": main["max_abs_err"],

@@ -72,12 +72,13 @@ class _MaskedNorm:
 
     channel_dim: int
 
-    def _batch_stats(self, x, mask):
+    def _batch_stats(self, x, mask, channel_dim=None):
         """Training: the batch statistics, and the running statistics moved
         towards them, both on the autograd graph (flax's updated
         batch_stats are traced values too); the buffers take a detached
-        copy."""
-        mean, var = _masked_moments(x, mask, self.channel_dim)
+        copy. ``channel_dim`` overrides the class's."""
+        mean, var = _masked_moments(
+            x, mask, self.channel_dim if channel_dim is None else channel_dim)
         m = self.momentum
         run_mean = (1 - m) * self.running_mean + m * mean.reshape(-1)
         run_var = (1 - m) * self.running_var + m * var.reshape(-1)
@@ -87,9 +88,9 @@ class _MaskedNorm:
             self.num_batches_tracked += 1
         return (mean, var), (run_mean, run_var)
 
-    def _normalize(self, x, mean, var):
+    def _normalize(self, x, mean, var, channel_dim=None):
         shape = [1] * x.dim()
-        shape[self.channel_dim] = -1
+        shape[self.channel_dim if channel_dim is None else channel_dim] = -1
         inv = self.weight.reshape(shape) / torch.sqrt(
             var.reshape(shape) + self.eps)
         return (x - mean.reshape(shape)) * inv + self.bias.reshape(shape)

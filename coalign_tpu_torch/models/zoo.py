@@ -1,5 +1,6 @@
-"""The PointPillars models of the port: the CoAlign flagship and the
-single-agent detectors.
+"""The model registry of the port (build_model) and its PointPillars
+models: the CoAlign flagship and the single-agent detectors. The SECOND
+family's models are in models/second_family.py.
 
 Ports of coalign_tpu/models/zoo.py:
   * PointPillarBaselineMultiscale (:164-213; ref
@@ -58,6 +59,7 @@ from coalign_tpu_torch.models.heads import (DetectionHeads,
                                             detection_heads)
 from coalign_tpu_torch.models.layers import DownsampleConv, NaiveCompressor
 from coalign_tpu_torch.models.pillar_encoder import PillarEncoder
+from coalign_tpu_torch.models.second_family import MODELS as SECOND_FAMILY
 from coalign_tpu_torch.ops.pillars import PillarSpec
 from coalign_tpu_torch.runtime import resolve_device
 from coalign_tpu_torch.utils.transforms import (get_pairwise_transformation,
@@ -389,6 +391,7 @@ _MODELS = {
     "point_pillar_where2comm": PointPillarWhere2comm,
     "point_pillar_v2vnet_robust": PointPillarV2VNetRobust,
     "point_pillar_mash": PointPillarMash,
+    **SECOND_FAMILY,
 }
 
 
@@ -408,8 +411,9 @@ def init_weights(model: nn.Module, generator: torch.Generator):
     scale 1, bias 0, running mean 0 and variance 1, layer norms with scale
     1 and bias 0; a module's own parameters (V2X-ViT's relation matrices
     and position embeddings, MASH's no-match logit, robust V2VNet's alpha)
-    and the Linears that start at zero (ZeroInitLinear) by its
-    ``init_weights(generator)``."""
+    and the Linears that start at zero (ZeroInitLinear), and the SECOND
+    family's sparse-conv kernels (fan_in = Cin x kernel volume), by its
+    ``init_weights(generator)``; nn.Conv3d kernels as the 2D ones."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (nn.modules.batchnorm._BatchNorm,
@@ -419,11 +423,12 @@ def init_weights(model: nn.Module, generator: torch.Generator):
                 mod.init_weights(generator)
             elif isinstance(mod, nn.Linear):
                 _lecun_normal_(mod.weight, mod.in_features, generator)
-            elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d,
+                                  nn.Conv3d)):
                 _lecun_normal_(mod.weight, mod.in_channels
                                * math.prod(mod.kernel_size), generator)
-            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)) \
-                    and mod.bias is not None:
+            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d,
+                                nn.Conv3d)) and mod.bias is not None:
                 mod.bias.zero_()
 
 

@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from coalign_tpu_torch.ops.voxels import cell_index
+
 
 class PillarSpec(NamedTuple):
     """Static voxel-grid geometry from the yaml config."""
@@ -41,8 +43,8 @@ def pillar_ids(points: torch.Tensor, mask: torch.Tensor, spec: PillarSpec):
     """
     x, y, z = points[..., 0], points[..., 1], points[..., 2]
     r = spec.lidar_range
-    ix = torch.floor((x - r[0]) / spec.voxel_size[0]).to(torch.int64)
-    iy = torch.floor((y - r[1]) / spec.voxel_size[1]).to(torch.int64)
+    ix = cell_index(x, r[0], spec.voxel_size[0])
+    iy = cell_index(y, r[1], spec.voxel_size[1])
     valid = (mask
              & (x >= r[0]) & (x < r[3]) & (y >= r[1]) & (y < r[4])
              & (z >= r[2]) & (z <= r[5])

@@ -58,7 +58,8 @@ def correct_direction(boxes7, dir_logits, dir_offset: float, num_bins: int):
 
 
 def post_process(cls_preds, reg_preds, anchors, transformation_matrix,
-                 dir_preds=None, unc_preds=None, *, score_threshold: float,
+                 dir_preds=None, unc_preds=None, iou_preds=None, *,
+                 score_threshold: float,
                  nms_threshold: float, gt_range, prefilter_k: int = 512,
                  max_keep: int = 100, dir_offset: float = 0.7853,
                  num_bins: int = 2) -> dict:
@@ -66,8 +67,12 @@ def post_process(cls_preds, reg_preds, anchors, transformation_matrix,
 
     cls_preds (B, A, H, W) logits, reg_preds (B, 7A, H, W), dir_preds
     (B, bins*A, H, W) or None (zero logits then: direction bin 0),
-    unc_preds (B, U*A, H, W) log-variances or None, anchors (H, W, A, 7)
-    'hwl', transformation_matrix (B, 4, 4) to the ego frame.
+    unc_preds (B, U*A, H, W) log-variances or None, iou_preds (B, A, H, W)
+    IoU-head logits or None, anchors (H, W, A, 7) 'hwl',
+    transformation_matrix (B, 4, 4) to the ego frame. With iou_preds each
+    score is rescored by ((sigmoid(iou) + 1) / 2) ** 4 before the threshold
+    (CIA-SSD, ref voxel_postprocessor.py:335-339); the infer fns, as the
+    JAX package's, pass none (ROADMAP §3).
 
     Returns corners3d (B, max_keep, 8, 3), boxes7 (B, max_keep, 7), scores
     (B, max_keep) and mask (B, max_keep) bool, ranked by score, and with
@@ -78,6 +83,9 @@ def post_process(cls_preds, reg_preds, anchors, transformation_matrix,
     """
     b = cls_preds.shape[0]
     scores = torch.sigmoid(_rows(cls_preds, 1)[..., 0])           # (B, k)
+    if iou_preds is not None:
+        iou = torch.clamp(torch.sigmoid(_rows(iou_preds, 1)[..., 0]), 0.0, 1.0)
+        scores = scores * ((iou + 1) * 0.5) ** 4
     k = scores.shape[1]
     valid = scores > score_threshold
 

@@ -207,8 +207,9 @@ def _load_model_dir(opt, params_hook=None):
                 "variables with coalign_tpu_torch.utils.weights."
                 "from_jax_params and save the state dict as net_epoch{N}.pth")
         raise FileNotFoundError(f"no net_epoch*.pth in {opt.model_dir}")
-    params["model"]["args"].setdefault("pillar_vfe", {}).setdefault(
-        "pad_parity", True)
+    vfe = params["model"]["args"].get("pillar_vfe")
+    if vfe is not None:
+        vfe.setdefault("pad_parity", True)
     base, batcher, model, _, spec = build_all(params, train=False,
                                               device=dev)
     load_checkpoint(model, found[1])

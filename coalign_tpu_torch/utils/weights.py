@@ -18,7 +18,11 @@ plain backbone's stages, ``_map_deblocks`` with the extra deblock,
 ``_map_pixel_weight``, ``_map_v2vnet_fusion``, ``_map_when2comm_fusion``,
 ``_map_cbr`` and ``_map_v2xvit_fusion``, and the head keys). A baseline's
 fusion is ``fusion`` in flax and ``fusion_net`` here, the multiscale
-model's ``fusion_nets_{i}`` and ``fusion_net.{i}``.
+model's ``fusion_nets_{i}`` and ``fusion_net.{i}``. It also takes the SECOND
+family's variables (the inverse of ckpt_import.py:708-880:
+``_SECOND_3D_SLOTS``, ``_conv3d_weight``'s spconv 1.x layout, which the
+port keeps, ``_map_ssfa`` and the CIA-SSD head names; VoxelNet's VFE,
+middle convs and 2D backbone).
 
 Where the reference has weights the JAX package has not, the state dict
 gets zeros, which compute what the JAX package computes: the bias of a
@@ -128,7 +132,7 @@ def _torch_key(path: str, layer_nums) -> tuple[str, str]:
         key = f"shrink_conv.layers.{c // 2}.double_conv.{2 * (c % 2)}"
         return (f"{key}.weight", "conv") if leaf == "kernel" else \
             (f"{key}.bias", "plain")
-    if m := re.fullmatch(r"(single_)?heads/(cls|reg|dir|unc)_head/"
+    if m := re.fullmatch(r"(single_)?heads/(cls|reg|dir|iou|unc)_head/"
                          r"(kernel|bias)", path):
         head = f"{m.group(1) and 'single_heads.' or ''}{m.group(2)}_head"
         return (f"{head}.weight", "conv") if leaf == "kernel" \
@@ -327,6 +331,97 @@ def _need(layer_nums, path: str):
     return layer_nums
 
 
+# the SECOND family (ckpt_import.py:708-880, inverted): the flax
+# Conv3DBNReLU creation order -> the reference's 3D blocks
+_SECOND_3D_BLOCKS = ("conv_input", "conv1.0", "conv2.0", "conv2.1", "conv2.2",
+                     "conv3.0", "conv3.1", "conv3.2", "conv4.0", "conv4.1",
+                     "conv4.2", "conv_out")
+# SSFA's ConvBNReLU_k -> (its Sequential, the conv's index); the norm
+# follows the conv (bottom_up_block_0 starts with a ZeroPad2d)
+_SSFA_CONVS = (("bottom_up_block_0", 1), ("bottom_up_block_0", 4),
+               ("bottom_up_block_0", 7), ("bottom_up_block_1", 0),
+               ("bottom_up_block_1", 3), ("bottom_up_block_1", 6),
+               ("trans_0", 0), ("trans_1", 0), ("conv_0", 0), ("conv_1", 0))
+_CIASSD_HEADS = {"cls": "conv_cls", "reg": "conv_box", "dir": "conv_dir",
+                 "iou": "conv_iou", "unc": "conv_unc"}
+
+
+def _second_key(path: str, ssfa: bool, layer_nums) -> tuple[str, str]:
+    """A flax path of the SECOND family -> (torch key, layout kind)."""
+    leaf = path.split("/")[-1]
+    field = _LEAF_FIELDS[leaf]
+    if m := re.fullmatch(r"VoxelBackbone8x_0/Conv3DBNReLU_(\d+)/(\w+)/\w+",
+                         path):
+        block = (f"{'spconv_block' if ssfa else 'backbone_3d'}."
+                 f"{_SECOND_3D_BLOCKS[int(m[1])]}")
+        if m[2] == "Conv_0":      # (kz, ky, kx, in, out), spconv 1.x's
+            return f"{block}.0.weight", "plain"
+        return f"{block}.1.{field}", "plain"
+    if m := re.fullmatch(r"Conv3DBNReLU_(\d)/(\w+)/\w+", path):
+        if m[2] == "Conv_0":
+            return f"cml.{m[1]}.0.weight", "conv3d"
+        return f"cml.{m[1]}.1.{field}", "plain"
+    if m := re.fullmatch(r"(?:VFELayer_(\d)/)?(Dense|MaskedBatchNorm)_0/\w+",
+                         path):
+        mod = "svfe" + (f".vfe_{int(m[1]) + 1}" if m[1] else "")
+        if m[2] == "Dense":
+            return f"{mod}.linear.weight", "linear"
+        return f"{mod}.norm.{field}", "plain"
+    if m := re.fullmatch(r"SSFA_0/ConvBNReLU_(\d+)/(\w+)/\w+", path):
+        mod, i = _SSFA_CONVS[int(m[1])]
+        if m[2] == "Conv_0":
+            return f"ssfa.{mod}.{i}.weight", "conv"
+        return f"ssfa.{mod}.{i + 1}.{field}", "plain"
+    if m := re.fullmatch(r"SSFA_0/ConvTranspose_(\d)/kernel", path):
+        return f"ssfa.deconv_block_{m[1]}.0.weight", "tconv"
+    if m := re.fullmatch(r"SSFA_0/Conv_(\d)/kernel", path):
+        return f"ssfa.w_{m[1]}.0.weight", "conv"
+    if m := re.fullmatch(r"SSFA_0/MaskedBatchNorm_(\d)/\w+", path):
+        i = int(m[1])
+        mod = f"deconv_block_{i}" if i < 2 else f"w_{i - 2}"
+        return f"ssfa.{mod}.1.{field}", "plain"
+    if m := re.fullmatch(r"DetectionHeads_0/(\w+)_head/\w+", path):
+        head = f"head.{_CIASSD_HEADS[m[1]]}" if ssfa else f"{m[1]}_head"
+        return f"{head}.{field}", "conv" if leaf == "kernel" else "plain"
+    if path.startswith("BaseBEVBackbone_0/"):
+        key, kind = _torch_key("backbone/" + path[len("BaseBEVBackbone_0/"):],
+                               layer_nums)
+        return "backbone_2d." + key[len("backbone."):], kind
+    raise KeyError(f"no port parameter for flax variable {path!r}")
+
+
+def _second_family_state(flat: dict, layer_nums) -> dict:
+    """The SECOND family's flax variables (flat) -> port arrays. The first
+    2D conv reads the height-compressed grid, flattened D-major by the JAX
+    package and C-major by the port (and the reference): its kernel's input
+    rows are permuted (ckpt_import.py:843-850, inverted). The JAX
+    package's IoU head has a bias that CIA-SSD's reference head lacks: it
+    must be 0 (no loss reaches it), and is dropped."""
+    ssfa = any(p.startswith("SSFA_0/") for p in flat)
+    c3d = next((v.shape[-1] for p, v in flat.items() if re.fullmatch(
+        r"(VoxelBackbone8x_0/Conv3DBNReLU_11|Conv3DBNReLU_2)/Conv_0/kernel",
+        p)), None)
+    first = ("SSFA_0/ConvBNReLU_0/Conv_0/kernel" if ssfa else
+             "BaseBEVBackbone_0/stages_0/ConvBNReLU_0/Conv_0/kernel")
+    convert = {"plain": lambda v: v, "linear": lambda v: v.T, "conv": _conv,
+               "tconv": _tconv,
+               "conv3d": lambda v: np.transpose(v, (4, 3, 0, 1, 2))}
+    out = {}
+    for path, value in flat.items():
+        if ssfa and path == "DetectionHeads_0/iou_head/bias":
+            if np.any(value != 0):
+                raise ValueError("CIA-SSD's IoU head has no bias, but the "
+                                 "JAX variables' is not 0")
+            continue
+        if path == first and c3d:
+            kh, kw, cd, o = value.shape
+            value = value.reshape(kh, kw, cd // c3d, c3d, o).transpose(
+                0, 1, 3, 2, 4).reshape(kh, kw, cd, o)
+        key, kind = _second_key(path, ssfa, layer_nums)
+        out[key] = convert[kind](value)
+    return out
+
+
 def from_jax_params(variables: dict, layer_nums=None) -> dict:
     """coalign_tpu PointPillars variables (nested numpy dicts) -> port
     state dict, including each batch norm's ``num_batches_tracked``.
@@ -338,19 +433,30 @@ def from_jax_params(variables: dict, layer_nums=None) -> dict:
     strides or widens, so the names cannot tell."""
     flat = {**_flatten(variables.get("params", {})),
             **_flatten(variables.get("batch_stats", {}))}
-    v2xvit_blocks = _v2xvit_blocks(flat)
+    if any(p.startswith(("VoxelBackbone8x_0/", "VFELayer_0/", "SSFA_0/"))
+           for p in flat):
+        arrays = _second_family_state(flat, layer_nums).items()
+    else:
+        v2xvit_blocks = _v2xvit_blocks(flat)
+        arrays = [kv for path, value in flat.items()
+                  for kv in _entries(path, value, layer_nums, v2xvit_blocks)]
     sd = {}
-    for path, value in flat.items():
-        for key, array in _entries(path, value, layer_nums, v2xvit_blocks):
-            sd[key] = torch.from_numpy(np.array(array, dtype=np.float32))
-            if key.endswith(".running_var"):
-                sd[key[:-len("running_var")] + "num_batches_tracked"] = \
-                    torch.tensor(0)
+    for key, array in arrays:
+        sd[key] = torch.from_numpy(np.array(array, dtype=np.float32))
+        if key.endswith(".running_var"):
+            sd[key[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0)
     return sd
 
 
 def load_pth(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Load a reference checkpoint into ``model`` with every key matched."""
+    """Load a reference checkpoint into ``model`` with every key matched.
+    A model's ``STATE_DICT_ALIASES`` ({checkpoint prefix: the model's})
+    renames a block the reference names two ways (the SECOND family's 3D
+    backbone, ``backbone_3d`` or ``spconv_block``)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    for alias, name in getattr(model, "STATE_DICT_ALIASES", {}).items():
+        sd = {name + k[len(alias):] if k.startswith(alias) else k: v
+              for k, v in sd.items()}
     model.load_state_dict(sd, strict=True)
     return model

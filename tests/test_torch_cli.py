@@ -227,12 +227,13 @@ def test_refused_commands_raise(trained, tmp_path, monkeypatch):
     shutil.rmtree(tmp_path / "orbax" / "step_10")
     with pytest.raises(FileNotFoundError, match="no net_epoch"):
         run.main(["inference", "--model_dir", str(tmp_path / "orbax"), *CPU])
-    # the real precalc.yaml's SECOND stage-1, PIXOR, LSS and DAIR-V2X
+    # the real precalc.yaml's SECOND stage-1 builds, the family ported: none
+    # of its dataset directories exists here, so it writes nothing; PIXOR,
+    # LSS and DAIR-V2X are refused
     hypes = os.path.join(os.path.dirname(__file__), "..", "coalign_tpu",
                          "hypes_yaml")
-    with pytest.raises(KeyError, match="second_ssfa_uncertainty"):
-        run.main(["precalc", "-y", os.path.join(hypes, "opv2v",
-                                                "precalc.yaml"), *CPU])
+    assert run.main(["precalc", "-y", os.path.join(hypes, "opv2v",
+                                                   "precalc.yaml"), *CPU]) == []
     for rel, item in (("opv2v/pixor_intermediate.yaml", "item 5"),
                       ("opv2v/lss_selfatt.yaml", "item 7"),
                       ("dairv2x/pointpillar_coalign.yaml", "item 4")):

@@ -413,3 +413,102 @@ def test_kd_step_on_cuda_matches_cpu(cuda):
                        {"core_method": "point_pillar_disconet_teacher",
                         "args": args})
     assert out["float64"]["terms"]["kd_loss"] > 0
+
+
+@pytest.mark.cuda
+def test_sparse_conv_ops_on_cuda_match_cpu(cuda):
+    # the SECOND path's voxel ops on the card against the CPU: keys, valid
+    # rows and rulebooks equal, features within 1e-5 (float32 sums in
+    # another order), on 3 frames of 0.1 m voxels, one of them overflowing
+    # its cap of 300 voxels
+    from coalign_tpu_torch.ops import sparse_conv as S
+    from coalign_tpu_torch.ops.voxels import VoxelSpec
+    spec = VoxelSpec.from_config([-8.0, -8.0, -3.0, 8.0, 8.0, 1.0],
+                                 [0.1, 0.1, 0.1])
+    rng = np.random.default_rng(3)
+    pts = np.zeros((3, 2000, 4), np.float32)
+    pts[..., :3] = rng.uniform([-8, -8, -3], [8, 8, 1], (3, 2000, 3))
+    pts[:2, 400:, :3] = rng.uniform([-1, -1, -2], [1, 1, -1.5], (2, 1600, 3))
+    mask = rng.uniform(size=(3, 2000)) > 0.1
+    w1 = torch.from_numpy(rng.normal(0, 0.1, (3, 3, 3, 4, 8)).astype(
+        np.float32))
+    w2 = torch.from_numpy(rng.normal(0, 0.1, (3, 3, 3, 8, 8)).astype(
+        np.float32))
+
+    def run(dev):
+        g = S.sparse_mean_voxelize(torch.from_numpy(pts).to(dev),
+                                   torch.from_numpy(mask).to(dev), spec, 300,
+                                   pad_z=1)
+        rb = S.subm_rulebook(g)
+        x = S.subm_conv(g, w1.to(dev), rulebook=rb)
+        s2 = S.downsample_active(x)
+        y = S.strided_conv(x, w2.to(dev), s2)
+        over = S.occupancy_overflow(torch.from_numpy(pts).to(dev),
+                                    torch.from_numpy(mask).to(dev), spec, 300)
+        return [t.cpu() for t in (g.keys, rb[0], rb[1], x.feats, s2.keys,
+                                  y.feats, S.to_dense(y), over)]
+
+    got, want = run(cuda), run("cpu")
+    assert int(want[-1].max()) > 0                 # a frame overflows
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.is_floating_point():
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+        else:
+            assert torch.equal(g, w), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["second_intermediate", "SECOND"])
+def test_second_on_cuda_matches_cpu(cuda, name):
+    # chip_smoke.py's second phase without its timing: the yaml's model at
+    # full width, B = 1, 5 agents, CUDA against the CPU (head maps within
+    # 2e-3 of max(1, the map's largest), the same box set), the IoU
+    # launches of a request (2 for late fusion)
+    from chip_smoke import second_parity
+    fields, _, _, _ = second_parity(name, "test")
+    assert fields["rotated_iou_launches"] == (
+        2 if fields["fusion"] == "late" else 1)
+    assert fields["seeded"]["boxes"][0] > 0
+
+
+@pytest.mark.cuda
+def test_second_recordings_on_cuda(cuda):
+    # chip_smoke.py's second_recordings: second.pth and
+    # second_intermediate.pth on CUDA, dense twin and sparse backbone,
+    # within tests/test_ckpt_import.py's bounds
+    from chip_smoke import second_recordings
+    assert set(second_recordings()) == {
+        "second_dense", "second_sparse", "second_intermediate_dense",
+        "second_intermediate_sparse"}
+
+
+@pytest.mark.cuda
+def test_second_step_on_cuda_matches_cpu(cuda):
+    # chip_smoke.py's second_parity: a tiny SECOND-SSFA's step on the
+    # sparse backbone, CUDA against the CPU at train_parity's bounds
+    from chip_smoke import second_step_parity
+    assert set(second_step_parity()) == {"float32", "float64"}
+
+
+@pytest.mark.cuda
+def test_cell_indices_on_cuda_match_cpu(cuda):
+    # voxel and pillar cells on the card equal the CPU's (IEEE division):
+    # a Python-scalar divisor let CUDA multiply by its reciprocal, which
+    # moved 10 of 150,000 coordinates of SECOND.yaml's scenes to the
+    # neighbouring cell
+    from coalign_tpu_torch.ops.pillars import PillarSpec, pillar_ids
+    from coalign_tpu_torch.ops.voxels import VoxelSpec, voxel_ids
+    rng = np.random.default_rng(5)
+    lr = [-140.8, -40.0, -3.0, 140.8, 40.0, 1.0]
+    pts = np.zeros((2, 500_000, 4), np.float32)
+    pts[..., :3] = rng.uniform(lr[:3], lr[3:], (2, 500_000, 3))
+    pts[1, :, 2] = -1.9                  # a plane on a 0.1 m cell boundary
+    mask = np.ones((2, 500_000), bool)
+    for ids_fn, spec in (
+            (voxel_ids, VoxelSpec.from_config(lr, [0.1, 0.1, 0.1])),
+            (pillar_ids, PillarSpec.from_config(lr, [0.4, 0.4, 4.0]))):
+        got = ids_fn(torch.from_numpy(pts).to(cuda),
+                     torch.from_numpy(mask).to(cuda), spec)
+        want = ids_fn(torch.from_numpy(pts), torch.from_numpy(mask), spec)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)

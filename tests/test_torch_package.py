@@ -111,7 +111,7 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
 
 def test_build_model_rejects_what_is_not_ported():
     with pytest.raises(KeyError, match="not ported"):
-        build_model({"core_method": "second", "args": {}}, device="cpu")
+        build_model({"core_method": "pixor", "args": {}}, device="cpu")
 
 
 def test_configure_cuda_sets_full_float32_and_autotuning(monkeypatch):

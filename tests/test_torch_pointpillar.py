@@ -209,7 +209,21 @@ def test_trunk_without_layer_nums_is_refused():
 
 
 def test_iou_head_is_not_ported():
+    """The IoU head, refused until the SECOND family came, is
+    ported: a point_pillar with ``use_iou_head`` gives the JAX model's
+    iou_preds beside its other maps (1e-4), its weights through
+    from_jax_params."""
     cfg = _tiny_cfg("base", "point_pillar")
     cfg["args"]["use_iou_head"] = True
-    with pytest.raises(NotImplementedError, match="IoU head"):
-        build_model(cfg, device="cpu")
+    batch = _tiny_batch(2)
+    jmodel, variables, jbatch, model = _jax_and_port(cfg, batch, 5)
+    want = jax.jit(lambda v, b: jmodel.apply(v, b, train=False))(
+        variables, jbatch)
+    with torch.no_grad():
+        got = model({k: torch.from_numpy(v) for k, v in batch.items()})
+    assert set(got) == set(want) == {"cls_preds", "reg_preds", "dir_preds",
+                                     "iou_preds"}
+    for key in got:
+        np.testing.assert_allclose(
+            got[key].numpy(), np.asarray(want[key]).transpose(0, 3, 1, 2),
+            rtol=0, atol=1e-4, err_msg=key)
