@@ -126,11 +126,37 @@ Phases, each printing one JSON line with its elapsed seconds:
              train cap): ms, peak memory, voxels a frame;
      second_parity   a tiny SECOND-SSFA's step on the sparse backbone,
              CUDA against the CPU (train_parity's bounds).
+ 19. baselines_train   B=4 full-width train steps of the seven yamls of
+             BASELINES from scratch (each yaml's loss and AdamW): ms, peak
+             memory, loss terms, no IoU launch; baselines_train_parity, the
+             tiny twins of DiscoNet, V2VNet, When2comm and V2X-ViT
+             (BASELINE_TWINS), CUDA step against the CPU's
+             (train_parity's bounds); disconet_ap, DiscoNet's twin trained
+             250 steps to DISCONET_AP_GATE;
+     periods fault 10 (after the kernel phase): limit_period and the
+             direction bins of 1,000,000 yaws and the boundary ones, CUDA
+             equal to the CPU;
+ 20. datasets   DAIR-V2X and V2X-Sim fixture trees written by the port at
+             dairv2x/ and v2xsim/pointpillar_coalign.yaml's ranges (504 x
+             200 and 160 x 160 canvases, 2 and 5 agents of ~30,000 points),
+             run inference of each from disk with fullscale_multiscale.pth
+             (1 IoU launch a frame, frames/s), frame 0 CUDA against the
+             CPU (maps within 2e-3, the same box set), 20 timed requests;
+             then the DAIR CoAlign two-pass request (dairv2x/
+             pointpillar_uncertainty.yaml's stage-1, the pose graph at L=2:
+             2 IoU launches, at (2, 512) and (1, 512));
+ 21. pixor   pixor_intermediate.yaml at its full raster (704 x 400 x 21, 5
+             agents) with pixor_inter.pth's shared weights: CUDA against
+             the CPU (maps within 2e-3 of each map's largest, the same box
+             set), 1 IoU launch, 20 timed requests and a profile;
+             pixor_recordings, pixor.pth and pixor_inter.pth against their
+             recordings on the card; pixor_train, its B=4 step.
 Then one JSON line describing each kernel (with its launches on each
-path above), timed at five shapes (the main
+path above), timed at six shapes (the main
 path's NMS input; that input stacked 8 times, a B=8 batch's one launch; 8
 frames of densely packed boxes; the stage-1 NMS input over 5 agent frames;
-the late request's joint NMS input) beside its bound and the time of one
+the DAIR CoAlign request's stage-1 NMS input over 2 agent frames; the late
+request's joint NMS input) beside its bound and the time of one
 launch that writes the same output (out.zero_()), the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Any failed check
 raises, so the exit code is not 0. make_infer_fn runs float32 in full
@@ -390,7 +416,8 @@ RECORDED_BASELINES = {
 # train phase's scale (8 frames in 2 scenarios, 5 agents of up to 24,000
 # points, those in range, the last agent an RSU); the CLI's runs read it
 # back from disk.
-HYPES = os.path.join(ROOT, "coalign_tpu", "hypes_yaml", "opv2v")
+HYPES_ROOT = os.path.join(ROOT, "coalign_tpu", "hypes_yaml")
+HYPES = os.path.join(HYPES_ROOT, "opv2v")
 DISK_SCENES = {**TRAIN_SCENES, "num_frames": 8, "seed": 21}
 DISK_FRAMES_PER_SCENARIO = 4
 DISK_SWEEP_LEVELS = "0,0.4"
@@ -520,6 +547,24 @@ def tiny_reference_run(workdir: str, device=None) -> tuple:
     return tree, run
 
 
+def boundary_yaws(n_random: int, seed: int = 10) -> np.ndarray:
+    """float32 yaws at and one ulp beside k pi / 2 (the direction bins'
+    and the decode's boundaries at 2 bins) and k 2 pi (limit_period's),
+    k in -8..8 (one ulp beside only for k != 0), then ``n_random`` uniform ones in [-4 pi, 4 pi): the
+    inputs of fault 10's checks (tests/test_torch_cuda.py,
+    tests/test_torch_baselines_train.py)."""
+    marks = np.concatenate([np.arange(-8, 9) * np.pi / 2,
+                            np.arange(-8, 9) * 2 * np.pi]).astype(np.float32)
+    inf = np.float32(np.inf)
+    # 0's neighbours are denormals, which XLA's CPU flushes to zero
+    near = marks[marks != 0]
+    edges = np.concatenate([marks, np.nextafter(near, inf),
+                            np.nextafter(near, -inf)])
+    rng = np.random.default_rng(seed)
+    rand = rng.uniform(-4 * np.pi, 4 * np.pi, n_random).astype(np.float32)
+    return np.concatenate([edges, rand]).astype(np.float32)
+
+
 def seeded_corners(n: int, seed: int, spread: float = 10.0) -> np.ndarray:
     """(n, 4, 2) BEV corners of car-sized boxes with centres in
     [-spread, spread]^2; by default packed into 20 m x 20 m, so that many
@@ -536,7 +581,16 @@ def seeded_corners(n: int, seed: int, spread: float = 10.0) -> np.ndarray:
 
 
 KERNEL_CASES = ("512x512", "40x150", "ragged", "all_cleared", "identical",
-                "world140", "degenerate")
+                "identical_far", "world140", "degenerate")
+# three boxes of the DAIR-V2X CoAlign request's stage-1 NMS input on which
+# the kernel gave a box's IoU with itself as 0 and 1/3 (ROADMAP §3 fault 11)
+FAR_LONG_BOXES = np.array([
+    [[-79.39507, -26.840303], [-78.61742, -24.758463],
+     [-88.08465, -21.222021], [-88.8623, -23.303862]],
+    [[103.23726, 32.150143], [104.12688, 33.761353],
+     [96.50322, 37.970722], [95.6136, 36.359512]],
+    [[97.72641, 27.684153], [98.33675, 29.514414],
+     [88.50734, 32.7922], [87.897, 30.961935]]], np.float32)
 
 
 def degenerate_corners(seed: int) -> np.ndarray:
@@ -570,6 +624,9 @@ def kernel_cases(name: str):
     all_cleared       two 16 x 16 grids of cars, 50 m apart, the second
                       shifted by 25 m: every pair is cleared;
     identical         one box 256 times against itself: every IoU is 1;
+    identical_far     FAR_LONG_BOXES and 253 boxes of 10 m x 2.2 m over
+                      x in [-100, 100], y in [-40, 40] at random yaws,
+                      each against itself (its IoU is 1) and the others;
     world140          512 cars over +-140 m against 256 jittered copies of
                       them and 256 others;
     degenerate        the 64 boxes of degenerate_corners, far from 256 cars
@@ -592,6 +649,18 @@ def kernel_cases(name: str):
     if name == "identical":
         box = seeded_corners(1, 5, spread=30.0)
         return t(np.repeat(box, 256, 0)), t(np.repeat(box, 256, 0))
+    if name == "identical_far":
+        rng = np.random.default_rng(11)
+        n = 253
+        yaw = rng.uniform(-np.pi, np.pi, (n, 1))
+        base = np.array([[-5.05, -1.1], [5.05, -1.1], [5.05, 1.1],
+                         [-5.05, 1.1]])
+        x = base[:, 0] * np.cos(yaw) - base[:, 1] * np.sin(yaw)
+        y = base[:, 0] * np.sin(yaw) + base[:, 1] * np.cos(yaw)
+        centre = rng.uniform([-100, -40], [100, 40], (n, 1, 2))
+        boxes = np.concatenate([FAR_LONG_BOXES,
+                                np.stack([x, y], -1) + centre])
+        return t(boxes), t(boxes)
     if name == "world140":
         c1 = seeded_corners(512, 6, spread=140.0)
         jitter = np.random.default_rng(7).normal(0, 0.5, (256, 1, 2))
@@ -1020,12 +1089,24 @@ def _one_sgd_step(device: str, dtype: torch.dtype, batch: dict,
 
 # parameters whose gradient is 0 in exact arithmetic and ~1e-17 in float64
 # on either device: the bias of a conv right before a batch norm
-# (DiscoNet's pixel-weight layer, in the KD student). Started at 0, they
-# stay ~1e-19 after an SGD step. train_parity holds their gradient and
-# value by the absolute error, within ZERO_GRAD_ATOL in float64.
+# (DiscoNet's pixel-weight layer, in the KD student; When2comm's
+# cbr_units), and a bias that shifts every logit of a softmax alike
+# (When2comm's key and attention biases, V2X-ViT's key biases). Started at
+# 0, they stay ~1e-19 after an SGD step. train_parity holds their gradient
+# and value by the absolute error, within ZERO_GRAD_ATOL in float64
+# (zero_grad_keys).
 ZERO_GRADS = tuple(f"fusion_net.pixel_weight_layer.conv1_{i}.bias"
                    for i in (1, 2, 3))
 ZERO_GRAD_ATOL = 1e-12
+
+
+def zero_grad_keys(grads: dict) -> list:
+    """The keys of ``grads`` (a float64 step's) whose gradient is 0 in
+    exact arithmetic: ZERO_GRADS, and every tensor whose largest gradient
+    is rounding noise, below 1e-13 of the step's largest."""
+    top = max(float(g.abs().max()) for g in grads.values())
+    return [k for k, g in grads.items()
+            if k in ZERO_GRADS or float(g.abs().max()) < 1e-13 * top]
 
 
 def _max_rel(got: dict, want: dict, skip=()) -> list:
@@ -1050,16 +1131,16 @@ def train_parity(batch: dict | None = None, model_cfg: dict = E2E_FLAGSHIP,
     magnitude: summation orders and grid_sample's atomics differ. In
     float64, the loss terms, the gradients and the whole state after the
     step (parameters after one SGD step, running statistics) within 1e-6
-    of each tensor's largest magnitude, but ZERO_GRADS within
+    of each tensor's largest magnitude, but zero_grad_keys' within
     ZERO_GRAD_ATOL absolute; the keys whose gradient is below 1e-9 are
-    listed (small_ref_grads). The labels stay float32 (assigned from float32 gt boxes on each
-    device), and their regression targets differ by an ulp between the
-    devices' float32 log and trigonometry. The float32 gradients (and so
-    the parameters after the step) are reported, not held: two float32
-    runs can put a ReLU input that lies within rounding of 0 on different
-    sides, which moves that element's gradient by its whole value and
-    every gradient upstream of it by up to ~1e-2
-    (tests/test_torch_train.py)."""
+    listed (small_ref_grads). The anchor targets are float32 (computed
+    in the step's dtype, then cast, as the JAX package does), and can
+    differ by an ulp between the devices' log and trigonometry. The
+    float32 gradients (and so the parameters after the step) are
+    reported, not held: two float32 runs can put a ReLU input that lies
+    within rounding of 0 on different sides, which moves that element's
+    gradient by its whole value and every gradient upstream of it by up to
+    ~1e-2 (tests/test_torch_train.py)."""
     batch = _tiny_parity_batch() if batch is None else batch
     out = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-6)):
@@ -1071,7 +1152,7 @@ def train_parity(batch: dict | None = None, model_cfg: dict = E2E_FLAGSHIP,
                                             anchor_args)
         name = str(dtype).split(".")[-1]
         running = [k for k in cpu_state if "running_" in k]
-        zero = [k for k in ZERO_GRADS if k in cpu_grads]
+        zero = zero_grad_keys(cpu_grads)
         errs = {"loss_terms": max([abs(terms[k] - v) / abs(v), k]
                                   for k, v in cpu_terms.items()),
                 "running_stats": _max_rel(
@@ -1096,11 +1177,12 @@ def train_parity(batch: dict | None = None, model_cfg: dict = E2E_FLAGSHIP,
     return out
 
 
-def train_to_ap(device=None) -> dict:
-    """tests/test_end2end.py's gate on the port: the tiny flagship (seed 42)
-    trained 250 Adam steps (lr 3e-3, eps 1e-10) on its two fixed frames,
-    then evaluated at B = 2 through make_infer_fn. Returns the losses, the
-    trained model and the AP; the caller checks them."""
+def train_to_ap(device=None, model_cfg: dict | None = None) -> dict:
+    """tests/test_end2end.py's gate on the port: the tiny flagship (or
+    ``model_cfg``; seed 42) trained 250 Adam steps (lr 3e-3, eps 1e-10) on
+    its two fixed frames, then evaluated at B = 2 through make_infer_fn.
+    Returns the losses, the trained model and the AP; the caller checks
+    them."""
     from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
     from coalign_tpu_torch.data.synthetic import SyntheticScenes
     from coalign_tpu_torch.inference import evaluate, gt_corners, make_infer_fn
@@ -1111,8 +1193,7 @@ def train_to_ap(device=None) -> dict:
     scenes = SyntheticScenes(**E2E_SCENES)
     batch = IntermediateFusionBatcher(**E2E_BATCHER).assemble(
         [scenes[0], scenes[1]])
-    model = build_model({"core_method": "point_pillar_baseline_multiscale",
-                         "args": E2E_ARGS}, device=device, seed=42)
+    model = build_model(model_cfg or E2E_FLAGSHIP, device=device, seed=42)
     spec = make_anchor_spec(E2E_ANCHORS, E2E_POSTPROCESS["target_args"])
     opt, sched = build_optimizer(model.parameters(),
                                  {"lr": 3e-3, "args": {"eps": 1e-10}})
@@ -1788,7 +1869,7 @@ def baseline_recordings() -> dict:
 FUSIONS_REST = ("pointpillar_where2comm", "pointpillar_mash",
                 "pointpillar_v2vnet_robust", "deform")
 DEFORM_ARGS_FROM = "pointpillar_selfatt"
-REST_TRAIN_STEPS = (2, 5)                 # warm-up, timed
+REST_TRAIN_STEPS = (1, 3)                 # warm-up, timed
 
 
 def rest_config(name: str) -> tuple:
@@ -1899,10 +1980,15 @@ REST_TRAIN = ("pointpillar_v2vnet_robust_stage0",
 
 
 def train_rest(card) -> dict:
-    """The train_rest phase, one line a REST_TRAIN entry (_rest_train_setup):
-    REST_TRAIN_STEPS warm-up and timed steps (CUDA events) at B = 4, full
-    width; ms a step, peak memory, the first and last loss terms, every
-    term finite, no IoU launch in a step. Robust V2VNet's stages: the
+    """The train_rest phase, one line a REST_TRAIN entry: train_lines."""
+    return train_lines(card, REST_TRAIN, "train_rest", REST_TRAIN_STEPS)
+
+
+def train_lines(card, names, phase_name: str, steps: tuple) -> dict:
+    """One ``phase_name`` line a yaml of ``names`` (_rest_train_setup):
+    ``steps`` warm-up and timed steps (CUDA events) at B = 4, full width;
+    ms a step, peak memory, the first and last loss terms, every term
+    finite, no IoU launch in a step. Robust V2VNet's stages: the
     parameters the stage freezes bit-identical after the steps, the
     others and every batch norm's statistics moved. A robust step that
     does not fit at B = 4 runs at B = 2, and its line says so. Returns the
@@ -1912,7 +1998,7 @@ def train_rest(card) -> dict:
     from coalign_tpu_torch.train import make_train_step
     spec = make_anchor_spec(FULL_ANCHORS, YAML_TARGETS)
     launches = {}
-    for name in REST_TRAIN:
+    for name in names:
         for batch_size in (TRAIN_BATCH, 2):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -1922,7 +2008,7 @@ def train_rest(card) -> dict:
                 before = {k: v.clone() for k, v in model.state_dict().items()}
                 step = make_train_step(model, loss, spec, opt, sched,
                                        teacher=teacher)
-                warm, timed = REST_TRAIN_STEPS
+                warm, timed = steps
 
                 def run():
                     terms = [step(batch) for _ in range(warm)]
@@ -1963,12 +2049,12 @@ def train_rest(card) -> dict:
                       "frozen_bit_identical": True}
         if name == "kd":
             fields["teacher"] = "fullscale_multiscale.pth, frozen"
-        ms = start.elapsed_time(end) / REST_TRAIN_STEPS[1]
+        ms = start.elapsed_time(end) / steps[1]
         launches[name] = n_iou
-        phase("train_rest", config=name, batch=batch_size,
+        phase(phase_name, config=name, batch=batch_size,
               note=None if batch_size == TRAIN_BATCH else
               f"does not fit at B={TRAIN_BATCH}",
-              timed_steps=REST_TRAIN_STEPS[1], ms_per_step=ms,
+              timed_steps=steps[1], ms_per_step=ms,
               frames_per_s=batch_size * 1000.0 / ms, peak_mem_gib=peak,
               first_step={k: float(v) for k, v in terms[0].items()},
               last_step={k: float(v) for k, v in terms[-1].items()},
@@ -2842,6 +2928,7 @@ def spread_cls_scores(models: dict, cls_preds: torch.Tensor) -> list:
     out = []
     for model in models.values():
         conv = (model.head.conv_cls if hasattr(model, "head")
+                else model.header.clshead if hasattr(model, "header")
                 else model.cls_head)
         with torch.no_grad():
             s = scale.to(conv.weight.device)
@@ -3157,6 +3244,516 @@ def second_step_parity() -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# The seven OPV2V baselines' training, the DAIR-V2X and V2X-Sim readers, and
+# the PIXOR family.
+
+BASELINE_TRAIN_STEPS = (1, 3)             # warm-up, timed
+# train_parity's tiny twins of the baselines with a learned fusion: the tiny
+# flagship's trunk (E2E_ARGS: 64 channels fused at 32 x 32) with each fusion
+BASELINE_TWIN_BASE = {k: v for k, v in E2E_ARGS.items()
+                      if k not in ("fusion_method", "att")}
+BASELINE_TWINS = {
+    "disconet": {"fusion_method": "disconet"},
+    "v2vnet": {"fusion_method": "v2vnet", "v2vnet": {
+        "num_iteration": 2, "agg_operator": "avg",
+        "conv_gru": {"kernel_size": [[3, 3]]}}},
+    "when2comm": {"fusion_method": "when2comm", "when2comm": {
+        "query_size": 8, "key_size": 16}},
+    "v2xvit": {"fusion_method": "v2xvit", "v2xvit": {"transformer": {
+        "encoder": {"num_blocks": 1, "depth": 2,
+                    "cav_att_config": {"dim": 64, "use_hetero": True,
+                                       "heads": 2, "dim_head": 32},
+                    "pwindow_att_config": {
+                        "dim": 64, "heads": [2, 2, 1],
+                        "dim_head": [32, 32, 64], "window_size": [4, 8, 16],
+                        "relative_pos_embedding": True,
+                        "fusion_method": "split_attn"},
+                    "feed_forward": {"mlp_dim": 96}}}}},
+}
+# the DiscoNet twin's train-to-AP gate: tests/test_end2end.py's (written in
+# PERF.md before the first run on the card)
+DISCONET_AP_GATE = {"last_over_first_loss": 0.05, "ap30": 0.8, "ap50": 0.6}
+
+
+def baseline_twin(name: str) -> dict:
+    return {"core_method": "point_pillar_baseline",
+            "args": {**BASELINE_TWIN_BASE, **BASELINE_TWINS[name]}}
+
+
+def periods_check() -> dict:
+    """Fault 10 on the card: limit_period (period 2 pi, offset 0.5; the
+    decode's pi, offset 0) and PointPillarLoss's direction bins of
+    boundary_yaws(1,000,000) on CUDA equal the CPU's exactly."""
+    from coalign_tpu_torch.loss.point_pillar_loss import (PointPillarLoss,
+                                                          PointPillarLossCfg)
+    from coalign_tpu_torch.utils.common import limit_period
+    yaws = torch.from_numpy(boundary_yaws(1_000_000))
+    for offset, period in ((0.5, 2 * np.pi), (0.0, np.pi)):
+        got = limit_period(yaws.cuda(), offset, period).cpu()
+        check(torch.equal(got, limit_period(yaws, offset, period)),
+              f"limit_period({offset}, {period:.4f}): CUDA differs from CPU")
+    loss = PointPillarLoss(PointPillarLossCfg(dir_offset=0.0, num_bins=2,
+                                              anchor_yaw_deg=(0.0, 0.0)))
+    reg = torch.zeros(1, len(yaws), 7)
+    reg[0, :, 6] = yaws
+    bins = loss._direction_targets(reg.cuda()).cpu()
+    check(torch.equal(bins, loss._direction_targets(reg)),
+          "direction bins: CUDA differs from CPU")
+    return {"yaws": len(yaws), "boundary_yaws": len(yaws) - 1_000_000,
+            "wrapped_equal": True, "bins_equal": True,
+            "second_bin_share": float(bins[0, :, 1].mean())}
+
+
+def baselines_train(card) -> dict:
+    """The baselines_train phase: train_lines of BASELINES (the yamls'
+    models from scratch, their loss and AdamW, B = 4, full width);
+    baselines_train_parity, the CUDA step of each learned fusion's tiny
+    twin against the CPU's (train_parity's bounds); disconet_ap, the
+    DiscoNet twin trained to DISCONET_AP_GATE. Returns the IoU launches a
+    train step."""
+    launches = train_lines(card, BASELINES, "baselines_train",
+                           BASELINE_TRAIN_STEPS)
+    phase("baselines_train_parity", **{
+        name: train_parity(None, baseline_twin(name))
+        for name in BASELINE_TWINS})
+    gate, ap_launches = counted_call(train_to_ap, None,
+                                     baseline_twin("disconet"))
+    losses = gate.pop("losses")
+    gate.pop("model")
+    ratio = losses[-1] / losses[0]
+    check(ratio < DISCONET_AP_GATE["last_over_first_loss"],
+          f"DiscoNet loss did not drop: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(gate["frames"] == 2 and gate["ap30"] > DISCONET_AP_GATE["ap30"]
+          and gate["ap50"] > DISCONET_AP_GATE["ap50"],
+          f"DiscoNet AP too low after training: {gate}")
+    phase("disconet_ap", steps=250, gate=DISCONET_AP_GATE,
+          first_loss=losses[0], last_loss=losses[-1],
+          loss_every_50=losses[::50], **gate,
+          rotated_iou_launches=ap_launches, card=card)
+    return launches
+
+
+# The datasets phase: fixture trees at the yamls' ranges, ~30,000 points an
+# agent (DAIR: the vehicle and the infrastructure; V2X-Sim: 5 agents)
+DATASET_YAMLS = ("dairv2x/pointpillar_coalign", "v2xsim/pointpillar_coalign")
+DAIR_STAGE1_YAML = "dairv2x/pointpillar_uncertainty"
+DATASET_SCENES = dict(num_frames=4, num_objects=20, points_per_object=900,
+                      ground_points=24000, agent_spread=30.0, seed=31)
+DATASET_REQUESTS = 20
+
+
+def dataset_params(work: str, rel: str) -> tuple:
+    """The yaml ``rel`` (of hypes_yaml/) on a fixture tree that the port's
+    writer writes under ``work``: DATASET_SCENES at the yaml's range with
+    its max_cav agents; no test_dir, no box_align json. Returns (the
+    params, the points of each agent written)."""
+    from coalign_tpu_torch.config.yaml_utils import load_yaml
+    from coalign_tpu_torch.data.fixtures import (write_dairv2x_fixture,
+                                                 write_v2xsim_fixture)
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    params = load_yaml(os.path.join(HYPES_ROOT, f"{rel}.yaml"))
+    params.pop("box_align", None)
+    scenes = SyntheticScenes(
+        num_agents=params["train_params"]["max_cav"],
+        lidar_range=params["preprocess"]["cav_lidar_range"],
+        **DATASET_SCENES)
+    name = rel.split("/")[0]
+    root = os.path.join(work, name)
+    if name == "dairv2x":
+        split = write_dairv2x_fixture(root, scenes)
+        params.update(data_dir=root, root_dir=split, validate_dir=split)
+    else:
+        os.makedirs(root, exist_ok=True)
+        pkl = write_v2xsim_fixture(os.path.join(root, "infos.pkl"), scenes)
+        params.update(root_dir=pkl, validate_dir=pkl)
+    params["test_dir"] = None
+    return params, [len(a["points"]) for i in range(len(scenes))
+                    for a in scenes[i]["agents"]]
+
+
+def dataset_parity(name: str, models: dict, batch: dict, post: dict,
+                   anchors) -> dict:
+    """CUDA against the CPU on one batch of the dataset: head maps within
+    2e-3, the same box set (match_box_sets' bounds) through make_infer_fn,
+    at the yaml's score threshold lowered until BASELINE_MIN_BOXES boxes
+    remain on the CPU."""
+    from coalign_tpu_torch.inference import make_infer_fn, to_device
+    from coalign_tpu_torch.runtime import configure_cuda
+    configure_cuda()            # full float32 before the first forward
+    with torch.no_grad():
+        maps = {dev: m(to_device(batch, dev)) for dev, m in models.items()}
+    map_err = {k: (v.cpu() - maps["cpu"][k]).abs().max().item()
+               for k, v in maps["cuda"].items()}
+    for key, err in map_err.items():
+        check(err < 2e-3, f"{name} {key}: CUDA vs CPU {err:.2e}")
+    for threshold in (post["target_args"]["score_threshold"], 0.1, 0.05,
+                      0.02, 0.01):
+        cfg = {**post, "target_args": {**post["target_args"],
+                                       "score_threshold": threshold}}
+        ref = make_infer_fn(models["cpu"], anchors, cfg, device="cpu")(batch)
+        if int(ref["mask"].sum()) >= BASELINE_MIN_BOXES:
+            break
+    check(int(ref["mask"].sum()) >= BASELINE_MIN_BOXES,
+          f"{name}: {int(ref['mask'].sum())} boxes at score 0.01")
+    counts, iou, ds = same_box_sets(
+        make_infer_fn(models["cuda"], anchors, cfg)(batch), ref)
+    return {"map_max_abs_err": map_err, "score_threshold": threshold,
+            "boxes": counts, "min_matched_iou": iou, "max_score_diff": ds}
+
+
+def dataset_check(card, work: str, rel: str, fullscale: str) -> dict:
+    """One datasets line: ``rel``'s yaml on its fixture tree
+    (dataset_params) as a reference-style run directory with
+    ``fullscale`` (the flagship checkpoint, whose keys the yaml's model
+    shares) through run inference from disk: 1 IoU launch a frame, frames/s
+    of the whole command and of the eval loop; frame 0 CUDA against the
+    CPU (dataset_parity); 20 timed requests and a profile of the infer fn.
+    Returns (the params, the IoU launches a CLI frame)."""
+    from coalign_tpu_torch.config.yaml_utils import load_yaml
+    from coalign_tpu_torch.data import build_dataset
+    from coalign_tpu_torch.inference import evaluate_dataset, make_infer_fn
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.tools import run
+    from coalign_tpu_torch.utils.weights import load_pth
+    t = time.perf_counter()
+    params, points = dataset_params(work, rel)
+    write_s = time.perf_counter() - t
+    ref_dir = write_run_dir(os.path.join(work, rel.replace("/", "_")),
+                            params, fullscale)
+    t = time.perf_counter()
+    (res, text), launches = counted_call(
+        cli, run.main, ["inference", "--model_dir", ref_dir])
+    cli_s = time.perf_counter() - t
+    check('"loaded_checkpoint": "net_epoch1.pth"' in text,
+          f"{rel}: the checkpoint was not loaded")
+    frames = DATASET_SCENES["num_frames"]
+    check(res["frames"] == frames and launches == frames,
+          f"{rel}: {launches} IoU launches over {res['frames']} frames")
+    ref_params = load_yaml(os.path.join(ref_dir, "config.yaml"))
+    ref_params["model"]["args"]["pillar_vfe"]["pad_parity"] = True
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = build_model(ref_params["model"], device=dev)
+        load_pth(models[dev], fullscale)
+    post = run.postprocess_cfg(ref_params)
+    anchors = generate_anchor_box(post["anchor_args"])
+    base, batcher = build_dataset(ref_params, train=False)
+    batch = batcher.assemble([base[0]])
+    fields = dataset_parity(rel, models, batch, post, anchors)
+
+    def eval_from_disk():
+        _, b = build_dataset(ref_params, train=False)
+        return evaluate_dataset(models["cuda"], b, base, anchors, post)
+
+    eval_from_disk()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eval_from_disk()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    infer = make_infer_fn(models["cuda"], anchors, post)
+    torch.cuda.reset_peak_memory_stats()
+    infer(batch)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase("datasets", config=rel, frames=frames,
+          agents=int(batch["agent_mask"].shape[1]),
+          grid=[post["anchor_args"]["W"], post["anchor_args"]["H"]],
+          points_per_agent=[min(points), max(points)], write_s=write_s,
+          eval=res, cli_s=cli_s, cli_frames_per_s=frames / cli_s,
+          eval_frames_per_s=frames / eval_s, rotated_iou_launches=launches,
+          launches_per_frame=launches / frames, **fields,
+          peak_mem_gib=peak, **timed_requests(infer, batch), card=card)
+    return params, launches / frames
+
+
+def dair_coalign_check(card, params: dict, fullscale: str) -> tuple:
+    """The datasets phase's DAIR CoAlign line: the two-pass request on the
+    DAIR tree (B = 1, L = 2, the coalign yaml's pose noise):
+    DAIR_STAGE1_YAML's stage-1 detector (the flagship checkpoint's shared
+    weights, a seeded uncertainty head, K = 24 boxes an agent), the pose
+    graph with the coalign yaml's box_align args, the flagship. Checks: 2
+    IoU launches a request, the stage-1 NMS at (2, 512), the corrected
+    poses on CUDA within 2e-3 m and 2e-3 degrees of the CPU's from the
+    same stage-1 detections. Returns (the fields, the stage-1 NMS input)."""
+    import itertools
+
+    from coalign_tpu_torch.config.yaml_utils import load_yaml
+    from coalign_tpu_torch.data import build_dataset
+    from coalign_tpu_torch.inference import make_infer_fn
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.posegraph import BoxAlignConfig
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.tools import run
+    from coalign_tpu_torch.tools.stage1 import (correct_batch_poses,
+                                                make_stage1_fn)
+    from coalign_tpu_torch.utils.weights import load_pth
+    y1 = load_yaml(os.path.join(HYPES_ROOT, f"{DAIR_STAGE1_YAML}.yaml"))
+    stage1 = make_stage1_fn(
+        stage1_model("cuda", y1["model"]["args"]),
+        generate_anchor_box(y1["postprocess"]["anchor_args"]),
+        run.postprocess_cfg(y1), STAGE1_BOXES)
+    coalign = load_yaml(os.path.join(HYPES_ROOT, f"{DATASET_YAMLS[0]}.yaml"))
+    cfg = BoxAlignConfig.from_yaml(coalign["box_align"]["args"])
+    model = build_model({**params["model"], "args": {
+        **params["model"]["args"], "pillar_vfe": {
+            **params["model"]["args"]["pillar_vfe"], "pad_parity": True}}})
+    load_pth(model, fullscale)
+    post = run.postprocess_cfg(params)
+    infer = make_infer_fn(model, generate_anchor_box(post["anchor_args"]),
+                          post)
+    base, batcher = build_dataset(params, train=False)
+    frames = [batcher.assemble([base[i]]) for i in range(len(base))]
+
+    def request(batch):
+        return infer(correct_batch_poses(batch, stage1(batch), cfg))
+
+    request(frames[0])
+    captured, restore = _capture_iou_inputs()
+    try:
+        dets, launches = counted_call(request, frames[1])
+    finally:
+        restore()
+    shapes = [list(c.shape[:2]) for c in captured]
+    check(launches == 2 and shapes == [[2, 512], [1, 512]],
+          f"{launches} IoU launches at {shapes} in a DAIR CoAlign request")
+    check(bool(torch.isfinite(dets["corners3d"][dets["mask"]]).all()),
+          "a kept box is not finite")
+    first = stage1(frames[1])
+    gpu = correct_batch_poses(frames[1], first, cfg)
+    cpu = correct_batch_poses(frames[1], {k: v.cpu() for k, v in
+                                          first.items()}, cfg, device="cpu")
+    dxy, dyaw = pose_diff(gpu["lidar_pose"][..., [0, 1, 4]],
+                          cpu["lidar_pose"][..., [0, 1, 4]])
+    check(dxy <= 2e-3 and dyaw <= 2e-3,
+          f"DAIR corrected pose CUDA vs CPU {dxy:.2e} m, {dyaw:.2e} deg")
+    it = itertools.cycle(frames)
+    ms = event_ms(lambda: request(next(it)), reps=DATASET_REQUESTS)
+    it = itertools.cycle(frames)
+    flagship_ms = event_ms(lambda: infer(next(it)), reps=DATASET_REQUESTS)
+    prof = profile_calls(lambda: request(frames[1]))
+    phase("datasets", config="dairv2x coalign two-pass",
+          stage1_yaml=f"coalign_tpu/hypes_yaml/{DAIR_STAGE1_YAML}.yaml",
+          agents=2, requests=DATASET_REQUESTS,
+          rotated_iou_launches_per_request=launches, nms_shapes=shapes,
+          corrected_pose_cuda_vs_cpu=[dxy, dyaw], ms_per_frame=ms,
+          frames_per_s=1000.0 / ms, flagship_ms_per_frame=flagship_ms,
+          profile={k: prof[k] for k in (
+              "stages", "call_wall_ms", "device_kernel_ms",
+              "device_busy_share", "device_kernel_launches")}, card=card)
+    return launches, captured[0]
+
+
+def datasets_check(card) -> tuple:
+    """The datasets phase (dataset_check for each of DATASET_YAMLS, then
+    dair_coalign_check). Its trees and run directories go under the
+    gitignored coalign_tpu_torch/_build/datasets/. Returns (IoU launches a
+    CLI frame of each yaml and a DAIR CoAlign request, the (2, 512) NMS
+    input)."""
+    import shutil
+    work = os.path.join(ROOT, "coalign_tpu_torch", "_build", "datasets")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    fullscale = os.path.join(GOLDEN, "fullscale_multiscale.pth")
+    launches = {}
+    for rel in DATASET_YAMLS:
+        params, launches[rel] = dataset_check(card, work, rel, fullscale)
+        if rel.startswith("dairv2x"):
+            dair = params
+    launches["dairv2x_coalign_request"], nms_input = dair_coalign_check(
+        card, dair, fullscale)
+    return launches, nms_input
+
+
+PIXOR_YAML = "opv2v/pixor_intermediate"
+PIXOR_SCENES = dict(num_frames=4, num_agents=5, num_objects=20,
+                    points_per_object=900, ground_points=24000,
+                    agent_spread=30.0, seed=41)
+PIXOR_TRAIN_STEPS = (1, 3)                # warm-up, timed
+
+
+def pixor_setup(device, y: dict, checkpoint: bool = True) -> tuple:
+    """pixor_intermediate.yaml's model at its full raster on ``device``
+    (seed 0) with every tensor of pixor_inter.pth whose shape it shares:
+    all but the stem's first conv, whose input is the yaml's 21-channel
+    raster, not the recording's 8. Returns (model, the seeded keys)."""
+    from coalign_tpu_torch.models.zoo import build_model
+    model = build_model(y["model"], device=device, seed=0)
+    if not checkpoint:
+        return model, []
+    sd = torch.load(os.path.join(GOLDEN, "pixor_inter.pth"),
+                    map_location="cpu", weights_only=True)
+    own = model.state_dict()
+    shared = {k: v for k, v in sd.items() if own[k].shape == v.shape}
+    missing, unexpected = model.load_state_dict(shared, strict=False)
+    check(not unexpected and missing == ["backbone.conv1.weight"],
+          f"pixor_inter.pth keys: missing {missing}, unexpected {unexpected}")
+    return model, missing
+
+
+def pixor_batch(y: dict, frames: int) -> dict:
+    from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    lr = y["preprocess"]["cav_lidar_range"]
+    scenes = SyntheticScenes(**{**PIXOR_SCENES, "num_frames": frames},
+                             lidar_range=lr)
+    return IntermediateFusionBatcher(
+        max_cav=5, max_points=30000, max_objects=100, lidar_range=lr,
+        comm_range=y.get("comm_range", 70.0)).assemble(
+        [scenes[i] for i in range(frames)])
+
+
+def pixor_recordings() -> dict:
+    """pixor.pth and pixor_inter.pth on CUDA against their recordings
+    (their 8-channel rasters driven through the backbone and header),
+    within tests/test_ckpt_import.py's bound, 2e-3 of each map's largest.
+    Returns each map's error as a share of the bound."""
+    from coalign_tpu_torch.models.pixor import attentive_agent_fusion
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.utils.weights import load_pth
+    out = {}
+    for tag, core in (("pixor", "pixor"), ("pixor_inter",
+                                           "pixor_intermediate")):
+        io = np.load(os.path.join(GOLDEN, f"{tag}_io.npz"))
+        geom = {"L1": -9.6, "L2": 9.6, "W1": -9.6, "W2": 9.6, "H1": -3.0,
+                "H2": -0.2, "res": 0.4}
+        model = build_model({"core_method": core, "args": {
+            "geometry_param": geom, "use_bn": True}})
+        load_pth(model, os.path.join(GOLDEN, f"{tag}.pth"))
+        bev = torch.from_numpy(io["bev"]).cuda()
+        with torch.no_grad():
+            if tag == "pixor":
+                feat = model.backbone(bev)
+            else:
+                mask = torch.ones(1, 2, dtype=torch.bool, device="cuda")
+                feat = model.backbone.decode(*[
+                    attentive_agent_fusion(c, mask)
+                    for c in model.backbone.encode(bev)])
+            cls, reg = model.header(feat)
+        for key, got in (("cls", cls), ("reg", reg)):
+            ref = io[key]
+            rel = float(np.abs(got.cpu().numpy() - ref).max()
+                        / np.abs(ref).max())
+            check(rel < 2e-3, f"{tag} {key}: {rel:.2e} of its largest")
+            out[f"{tag}_{key}"] = rel / 2e-3
+    return out
+
+
+def pixor_check(card) -> dict:
+    """The pixor phase: pixor_intermediate.yaml at its full raster (704 x
+    400 x 21, 5 agents of ~30,000 points, B = 1) with pixor_inter.pth
+    (pixor_setup): CUDA against the CPU, maps within 2e-3 of each map's
+    largest and the same box set (match_box_sets' bounds) through
+    make_infer_fn's dense branch, on a cls head spread as
+    spread_cls_scores does when the checkpoint decodes too few boxes on
+    these scenes; 1 IoU launch a request; 20 timed requests and a profile;
+    pixor_recordings on the card; then the yaml's B = 4 train step from
+    scratch (its loss and AdamW, the dense labels assigned in the step):
+    ms, peak memory (B = 2 if B = 4 does not fit, said so). Returns the
+    IoU launches of a request and a train step."""
+    from coalign_tpu_torch.config.yaml_utils import load_yaml
+    from coalign_tpu_torch.inference import (dense_post_process,
+                                             make_infer_fn, to_device)
+    from coalign_tpu_torch.loss import build_loss
+    from coalign_tpu_torch.ops.bev_raster import BevSpec
+    from coalign_tpu_torch.postprocess.dense_bev import DenseBevSpec
+    from coalign_tpu_torch.train import build_optimizer, make_train_step
+    from coalign_tpu_torch.runtime import configure_cuda
+    configure_cuda()            # full float32 before the first forward
+    y = load_yaml(os.path.join(HYPES_ROOT, f"{PIXOR_YAML}.yaml"))
+    spec = DenseBevSpec(bev=BevSpec.from_config(
+        y["model"]["args"]["geometry_param"]))
+    post = {"target_args": y["postprocess"]["target_args"],
+            "nms_thresh": y["postprocess"]["nms_thresh"],
+            "gt_range": y["postprocess"]["gt_range"]}
+    batch = pixor_batch(y, 1)
+    built = {dev: pixor_setup(dev, y) for dev in ("cuda", "cpu")}
+    models = {dev: m for dev, (m, _) in built.items()}
+
+    def forward(dev):
+        with torch.no_grad():
+            return models[dev](to_device(batch, dev))
+
+    t = time.perf_counter()
+    cpu_maps = forward("cpu")
+    cpu_s = time.perf_counter() - t
+    thr, nms = float(post["target_args"]["score_threshold"]), float(
+        post["nms_thresh"])
+    tfm = torch.from_numpy(batch["transformation_matrix"])
+    ref = dense_post_process(cpu_maps, tfm, spec, thr, nms)
+    spread = None
+    if int(ref["mask"].sum()) < BASELINE_MIN_BOXES:
+        spread = spread_cls_scores(models, cpu_maps["cls_map"])
+        cpu_maps = forward("cpu")
+        ref = dense_post_process(cpu_maps, tfm, spec, thr, nms)
+    check(int(ref["mask"].sum()) >= BASELINE_MIN_BOXES,
+          f"PIXOR: {int(ref['mask'].sum())} boxes on the CPU")
+    errs = _map_errors(forward("cuda"), cpu_maps)
+    for key, e in errs.items():
+        check(e["rel_err"] < 2e-3, f"PIXOR {key}: {e}")
+    infer = make_infer_fn(models["cuda"], spec, post)
+    infer(batch)
+    torch.cuda.reset_peak_memory_stats()
+    dets, launches = counted_call(infer, batch)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches == 1, f"{launches} IoU launches in a PIXOR request")
+    counts, iou, ds = same_box_sets(dets, ref)
+    phase("pixor", config=f"coalign_tpu/hypes_yaml/{PIXOR_YAML}.yaml",
+          raster=[spec.bev.nx, spec.bev.ny, spec.bev.nz + 1], agents=5,
+          points_per_agent=int(batch["point_mask"][0].sum(-1).max()),
+          checkpoint="pixor_inter.pth", seeded_keys=built["cpu"][1],
+          cls_spread=spread, cpu_forward_s=cpu_s, map_errors=errs,
+          boxes=counts, min_matched_iou=iou, max_score_diff=ds,
+          rotated_iou_launches=launches, peak_mem_gib=peak,
+          **timed_requests(infer, batch), card=card)
+    phase("pixor_recordings", bound_ratio=pixor_recordings(), card=card)
+    del models, built, infer
+    torch.cuda.empty_cache()
+
+    for batch_size in (TRAIN_BATCH, 2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            model, _ = pixor_setup("cuda", y, checkpoint=False)
+            opt, sched = build_optimizer(model.parameters(), y["optimizer"])
+            step = make_train_step(model, build_loss(y["loss"]), spec, opt,
+                                   sched)
+            train_batch = pixor_batch(y, batch_size)
+            warm, timed = PIXOR_TRAIN_STEPS
+
+            def run_steps():
+                terms = [step(train_batch) for _ in range(warm)]
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                terms += [step(train_batch) for _ in range(timed)]
+                end.record()
+                return terms, start, end
+
+            (terms, start, end), n_iou = counted_call(run_steps)
+            break
+        except torch.cuda.OutOfMemoryError:
+            check(batch_size == TRAIN_BATCH,
+                  f"the PIXOR step does not fit at B={batch_size}")
+            model = opt = step = train_batch = None
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(np.isfinite(float(v)) for t in terms for v in t.values()),
+          "PIXOR: a loss term is not finite")
+    check(n_iou == 0, f"PIXOR: {n_iou} IoU launches in a train step")
+    ms = start.elapsed_time(end) / PIXOR_TRAIN_STEPS[1]
+    phase("pixor_train", config=f"coalign_tpu/hypes_yaml/{PIXOR_YAML}.yaml",
+          batch=batch_size, note=None if batch_size == TRAIN_BATCH else
+          f"does not fit at B={TRAIN_BATCH}",
+          timed_steps=PIXOR_TRAIN_STEPS[1], ms_per_step=ms,
+          frames_per_s=batch_size * 1000.0 / ms, peak_mem_gib=peak,
+          first_step={k: float(v) for k, v in terms[0].items()},
+          last_step={k: float(v) for k, v in terms[-1].items()}, card=card)
+    del model, opt, step, train_batch
+    torch.cuda.empty_cache()
+    return {"request": launches, "train_step": n_iou}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -3219,6 +3816,7 @@ def main() -> int:
                        "cleared_share": float(cleared.double().mean()),
                        "overlapping_pairs": int((got > 0).sum())}
     phase("kernel", cases=cases)
+    phase("periods", **periods_check(), card=card)
 
     # 4. full width against the reference's recording
     batch, io = fullscale_batch()
@@ -3370,12 +3968,20 @@ def main() -> int:
     rest_train_launches = train_rest(card)
     phase("rest_parity", **rest_parity())
 
+    # 19. the seven OPV2V baselines trained at full width; their learned
+    # fusions' tiny twins on CUDA against the CPU; DiscoNet's twin to AP
+    baselines_train_launches = baselines_train(card)
+
     # 18. the SECOND family at full width: serving, the recordings on the
     # card, training and the tiny step against the CPU's
     second_launches = second_check(card)
     phase("second_recordings", bound_ratio=second_recordings(), card=card)
     second_train_launches = second_train(card)
     phase("second_parity", **second_step_parity())
+
+    # 20-21. DAIR-V2X and V2X-Sim from disk, CoAlign on DAIR; PIXOR
+    dataset_launches, dair_nms_input = datasets_check(card)
+    pixor_launches = pixor_check(card)
 
     # 15. the on-disk data path and the run CLI at full width
     disk = disk_check(card, per_call, native_build)
@@ -3389,7 +3995,8 @@ def main() -> int:
               "batch8": c.expand(8, -1, -1, -1).contiguous(),
               "dense": torch.from_numpy(np.stack(
                   [seeded_corners(c.shape[1], s) for s in range(8)])).to(dev),
-              "stage1": stage1_nms_input}
+              "stage1": stage1_nms_input,
+              "dair_stage1": dair_nms_input}
     timed = {name: time_shape(x) for name, x in shapes.items()}
     # the late request's joint NMS input, its error over the pairs of two
     # candidate boxes (late_check)
@@ -3421,6 +4028,13 @@ def main() -> int:
         "launches_per_rest_train_step": rest_train_launches,
         "launches_per_second_request": second_launches,
         "launches_per_second_train_step": second_train_launches,
+        "launches_per_baselines_train_step": baselines_train_launches,
+        "launches_per_dataset_cli_frame": {
+            k: v for k, v in dataset_launches.items() if "/" in k},
+        "launches_per_dair_coalign_request":
+            dataset_launches["dairv2x_coalign_request"],
+        "launches_per_pixor_request": pixor_launches["request"],
+        "launches_per_pixor_train_step": pixor_launches["train_step"],
         **disk,
         "max_abs_err": main["max_abs_err"],
         "max_abs_diff": main["max_abs_err"],

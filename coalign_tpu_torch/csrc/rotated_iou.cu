@@ -29,7 +29,7 @@
 //      threads takes a tile of 32 rows and 32 columns and stages its 32 row
 //      and 32 column boxes once: corners, edge vectors, area, centre and
 //      reach (circumradius plus half the separation margin; infinite for a
-//      degenerate box). A record is 21 floats, an odd stride, so lanes
+//      degenerate box). A record is 13 floats, an odd stride, so lanes
 //      reading consecutive column boxes hit distinct banks. A tile's rows
 //      are strided over the matrix (row blockIdx.y + r * gridDim.y): boxes
 //      adjacent in the caller's order, such as the NMS's score-sorted
@@ -61,7 +61,7 @@
 //      numerators against the signed denominator (t * |d| in
 //      [-1e-9 |d|, |d|], the same for u, and |d| >= 1e-9), and only a
 //      crossing that passes is divided (the fast divide), for its point.
-//      The edge vectors come from shared memory. The accepted set can differ
+//      The accepted set can differ
 //      from the divided form only for a crossing within rounding of an
 //      edge's end, which is then also a corner candidate, so the ring's area
 //      does not change.
@@ -83,7 +83,14 @@
 // range) the untranslated float32 form of the JAX package cancels down to
 // about 5e-4 of IoU, the translated one stays within 1e-6 of float64
 // (tests/test_torch_iou.py). The plain PyTorch version
-// (coalign_tpu_torch/utils/iou.py) translates the same way.
+// (coalign_tpu_torch/utils/iou.py) translates the same way. The edge
+// vectors of the point-in-quad and crossing tests are taken in that frame
+// too, from the translated corners, as the plain version takes them, and
+// their cross products are never contracted into fused multiply-adds
+// (cross()): a corner of a box then lies on its own edges to the last bit,
+// a cross product of exactly 0, and a box against itself keeps all 4
+// corners (the DAIR-V2X stage-1 NMS input showed a box's IoU with itself
+// as 0 and 1/3 before; ROADMAP §3 fault 11).
 //
 // C interface (bound with ctypes, no PyTorch headers):
 //   int rotated_iou_launch(const float* corners1,  // (batch, n, 4, 2)
@@ -101,8 +108,10 @@ constexpr int kRowsPerWarp = 4;                // warp w culls rows w + 8 s
 constexpr int kRows = kWarps * kRowsPerWarp;   // a tile's rows
 constexpr int kCols = 32;                      // a tile's columns, one a lane
 // 3 blocks of 256 threads an SM hold the kernel to 80 registers (ptxas
-// spills 24 bytes), and give the survivors' path 24 warps an SM instead of
-// the 16 that its 108 registers would leave
+// spills 120 bytes since the edges are taken per pair from the translated
+// corners, 24 before; the same times within the run's noise, PERF.md), and
+// give the survivors' path 24 warps an SM instead of the 16 that its 108
+// registers would leave
 constexpr int kBlocksPerSM = 3;
 constexpr int kSlots = 24;  // candidate slots: 4 + 4 corners, 16 crossings
 
@@ -114,13 +123,11 @@ constexpr float kSquareCos = 1e-2f;  // |cos| of a corner, ~0.6 deg off 90
 // a box's record in shared memory
 constexpr int kX = 0;       // 4 corners' x, then their y
 constexpr int kY = 4;
-constexpr int kEX = 8;      // edge k = corner k+1 - corner k
-constexpr int kEY = 12;
-constexpr int kArea = 16;   // shoelace area, relative to corner 0
-constexpr int kCX = 17;     // mean of the corners
-constexpr int kCY = 18;
-constexpr int kReach = 19;  // circumradius + kSepMargin / 2, inf if degenerate
-constexpr int kStride = 21;  // 20 fields; odd: column reads are conflict-free
+constexpr int kArea = 8;    // shoelace area, relative to corner 0
+constexpr int kCX = 9;      // mean of the corners
+constexpr int kCY = 10;
+constexpr int kReach = 11;  // circumradius + kSepMargin / 2, inf if degenerate
+constexpr int kStride = 13;  // 12 fields; odd: column reads are conflict-free
 
 // Reads box ``src`` (4 x (x, y), or zeros when not ``live``) and writes its
 // record to ``dst``.
@@ -164,14 +171,22 @@ __device__ __forceinline__ void stage_box(const float* __restrict__ src,
   for (int k = 0; k < 4; ++k) {
     dst[kX + k] = x[k];
     dst[kY + k] = y[k];
-    dst[kEX + k] = ex[k];
-    dst[kEY + k] = ey[k];
   }
   dst[kArea] = 0.5f * fabsf(tot);
   dst[kCX] = cx;
   dst[kCY] = cy;
   dst[kReach] = ok ? sqrtf(r2) + 0.5f * kSepMargin
                   : __int_as_float(0x7f800000);  // +inf
+}
+
+// a * b - c * d with both products rounded, never contracted into a fused
+// multiply-add: then a * b - b * a is exactly 0, as in the plain version's
+// PyTorch arithmetic. Contracted, it is the rounding error of one product,
+// up to |a b| 2^-24: for a corner on its own 10 m edge ~6e-6, beyond the
+// point-in-quad eps (1e-6), and a box's IoU with itself came out 0 or 1/3
+// (ROADMAP §3 fault 11).
+__device__ __forceinline__ float cross(float a, float b, float c, float d) {
+  return __fsub_rn(__fmul_rn(a, b), __fmul_rn(c, d));
 }
 
 // Point (px, py) inside the convex quad (qx, qy) with edges (ex, ey), either
@@ -183,7 +198,7 @@ __device__ __forceinline__ bool in_quad(float px, float py, const float* qx,
   bool neg = true;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const float cr = ex[k] * (py - qy[k]) - ey[k] * (px - qx[k]);
+    const float cr = cross(ex[k], py - qy[k], ey[k], px - qx[k]);
     pos = pos && (cr >= -1e-6f);
     neg = neg && (cr <= 1e-6f);
   }
@@ -235,9 +250,10 @@ __device__ __forceinline__ void compare_exchange(float* key, float* x,
 }
 
 // IoU of the row box ``R`` and the column box ``C`` (shared-memory records),
-// in the frame whose origin is R's first corner. The 24 candidates keep the
-// reference's slots (R's corners, C's corners, crossing 4 a + e of R's edge a
-// and C's edge e), in registers; invalid slots sort last.
+// in the frame whose origin is R's first corner, edges included. The 24
+// candidates keep the reference's slots (R's corners, C's corners, crossing
+// 4 a + e of R's edge a and C's edge e), in registers; invalid slots sort
+// last.
 __device__ float pair_iou(const float* R, const float* C) {
   const float ox = R[kX];
   const float oy = R[kY];
@@ -248,10 +264,14 @@ __device__ float pair_iou(const float* R, const float* C) {
     q1y[k] = R[kY + k] - oy;
     q2x[k] = C[kX + k] - ox;
     q2y[k] = C[kY + k] - oy;
-    e1x[k] = R[kEX + k];
-    e1y[k] = R[kEY + k];
-    e2x[k] = C[kEX + k];
-    e2y[k] = C[kEY + k];
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int k2 = (k + 1) & 3;
+    e1x[k] = q1x[k2] - q1x[k];
+    e1y[k] = q1y[k2] - q1y[k];
+    e2x[k] = q2x[k2] - q2x[k];
+    e2y[k] = q2y[k2] - q2y[k];
   }
 
   float px[kSlots], py[kSlots];
@@ -270,15 +290,15 @@ __device__ float pair_iou(const float* R, const float* C) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int s = 8 + 4 * a + e;
-      const float d = e1x[a] * e2y[e] - e1y[a] * e2x[e];
+      const float d = cross(e1x[a], e2y[e], e1y[a], e2x[e]);
       const float ad = fabsf(d);
       // t = tn / ad and u = un / ad, tested before dividing; 1 + 1e-9
       // rounds to 1 in float32, as in the divided form's test
       const float sg = d < 0.f ? -1.f : 1.f;
       const float qpx = q2x[e] - q1x[a];
       const float qpy = q2y[e] - q1y[a];
-      const float tn = sg * (qpx * e2y[e] - qpy * e2x[e]);
-      const float un = sg * (qpx * e1y[a] - qpy * e1x[a]);
+      const float tn = sg * cross(qpx, e2y[e], qpy, e2x[e]);
+      const float un = sg * cross(qpx, e1y[a], qpy, e1x[a]);
       const float lo = -1e-9f * ad;
       px[s] = q1x[a];
       py[s] = q1y[a];

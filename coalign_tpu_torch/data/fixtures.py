@@ -1,20 +1,26 @@
 """Write synthetic scenes to disk in the real OPV2V layout.
 
-The port's copy of coalign_tpu/data/fixtures.py ``write_opv2v_fixture``. The
-reference ships no test fixtures; this writes a miniature but
-format-faithful OPV2V root (``<scenario>/<cav>/<ts>.yaml|.pcd``) from
-data/synthetic.SyntheticScenes, so that the on-disk reader (data/opv2v.py)
-is tested against a known oracle without the 100+ GB dataset.
+The port's copy of coalign_tpu/data/fixtures.py. The reference ships no
+test fixtures; these write miniature but format-faithful trees from
+data/synthetic.SyntheticScenes, so that the on-disk readers are tested
+against a known oracle without the datasets: an OPV2V root
+(``<scenario>/<cav>/<ts>.yaml|.pcd``, data/opv2v.py), a V2X-Sim info
+pickle with ``.bin`` scans (data/v2xsim.py) and a DAIR-V2X-C root with its
+split json (data/dairv2x.py).
 """
 
 from __future__ import annotations
 
+import json
 import os
+import pickle
 
 import numpy as np
 import yaml
 
 from coalign_tpu_torch.data.pcd_io import write_pcd
+from coalign_tpu_torch.utils.box_utils import boxes_to_corners_3d
+from coalign_tpu_torch.utils.transforms import pose_to_tfm
 
 
 def write_opv2v_fixture(root: str, scenes, frames_per_scenario: int = 4,
@@ -67,3 +73,109 @@ def write_opv2v_fixture(root: str, scenes, frames_per_scenario: int = 4,
                 write_pcd(os.path.join(cav_dir, ts + ".pcd"),
                           agent["points"])
     return root
+
+
+def _yaw_to_quat(yaw):
+    return [float(np.cos(yaw / 2)), 0.0, 0.0, float(np.sin(yaw / 2))]
+
+
+def write_v2xsim_fixture(path: str, scenes) -> str:
+    """Materialize ``scenes`` as a V2X-Sim info pickle at ``path``, the
+    agents' (N, 5) float32 ``.bin`` scans beside it. Returns ``path``."""
+    root = os.path.dirname(os.path.abspath(path))
+    infos = []
+    for idx in range(len(scenes)):
+        frame = scenes[idx]
+        boxes = frame["objects"]["boxes"]                # world hwl
+        gt = np.zeros((len(boxes), 10), dtype=np.float64)
+        gt[:, :3] = boxes[:, :3]
+        gt[:, 3] = boxes[:, 5]                           # dx = l
+        gt[:, 4] = boxes[:, 4]                           # dy = w
+        gt[:, 5] = boxes[:, 3]                           # dz = h
+        for i, b in enumerate(boxes):
+            gt[i, 6:10] = _yaw_to_quat(b[6])
+        info = {"agent_num": len(frame["agents"])}
+        for ai, agent in enumerate(frame["agents"]):
+            cav = ai + 1
+            pts = agent["points"]
+            scan = np.zeros((len(pts), 5), dtype=np.float32)
+            scan[:, :4] = pts
+            rel = f"lidar_{idx:04d}_{cav}.bin"
+            scan.tofile(os.path.join(root, rel))
+            info[f"lidar_path_{cav}"] = rel
+            info[f"lidar_pose_{cav}"] = np.asarray(
+                pose_to_tfm(agent["pose"]), dtype=np.float64)
+            info[f"labels_{cav}"] = {
+                "gt_boxes_global": gt,
+                "gt_object_ids": np.asarray(frame["objects"]["ids"]),
+            }
+        infos.append(info)
+    with open(path, "wb") as f:
+        pickle.dump(infos, f)
+    return path
+
+
+def write_dairv2x_fixture(root: str, scenes) -> str:
+    """Materialize scenes of at least 2 agents (the first two are the
+    vehicle and the infrastructure) in the DAIR-V2X-C layout under
+    ``root``, the ``data_dir``. Returns the split json's path. The
+    vehicle's pose is written as an identity lidar -> novatel and its pose
+    as novatel -> world; the system error offsets are 0; the sides' own
+    labels are empty."""
+    def jdump(rel, obj):
+        p = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        with open(p, "w") as f:
+            json.dump(obj, f)
+
+    data_info, split = [], []
+    for idx in range(len(scenes)):
+        frame = scenes[idx]
+        if len(frame["agents"]) < 2:
+            raise ValueError("a DAIR-V2X frame needs 2 agents")
+        veh, inf = frame["agents"][0], frame["agents"][1]
+        fid = f"{idx:06d}"
+        split.append(fid)
+
+        t_wv = np.asarray(pose_to_tfm(veh["pose"]), dtype=np.float64)
+        t_wi = np.asarray(pose_to_tfm(inf["pose"]), dtype=np.float64)
+        jdump(f"vehicle-side/calib/lidar_to_novatel/{fid}.json",
+              {"transform": {"rotation": np.eye(3).tolist(),
+                             "translation": [[0.0], [0.0], [0.0]]}})
+        jdump(f"vehicle-side/calib/novatel_to_world/{fid}.json",
+              {"rotation": t_wv[:3, :3].tolist(),
+               "translation": t_wv[:3, 3:4].tolist()})
+        jdump(f"infrastructure-side/calib/virtuallidar_to_world/{fid}.json",
+              {"rotation": t_wi[:3, :3].tolist(),
+               "translation": t_wi[:3, 3:4].tolist()})
+
+        corners = np.asarray(boxes_to_corners_3d(frame["objects"]["boxes"],
+                                                 "hwl"))
+        coop = [{"world_8_points": c.tolist(), "type": "car"}
+                for c in corners]
+        jdump(f"cooperative/label_world/{fid}.json", coop)
+        jdump(f"cooperative/label_world_backup/{fid}.json", coop)
+        jdump(f"vehicle-side/label/lidar/{fid}.json", [])
+        jdump(f"infrastructure-side/label/virtuallidar/{fid}.json", [])
+
+        for side, agent in (("vehicle-side", veh),
+                            ("infrastructure-side", inf)):
+            pdir = os.path.join(root, side, "velodyne")
+            os.makedirs(pdir, exist_ok=True)
+            write_pcd(os.path.join(pdir, fid + ".pcd"), agent["points"])
+
+        data_info.append({
+            "vehicle_image_path": f"vehicle-side/image/{fid}.jpg",
+            "infrastructure_image_path":
+                f"infrastructure-side/image/{fid}.jpg",
+            "vehicle_pointcloud_path": f"vehicle-side/velodyne/{fid}.pcd",
+            "infrastructure_pointcloud_path":
+                f"infrastructure-side/velodyne/{fid}.pcd",
+            "cooperative_label_path": f"cooperative/label_world/{fid}.json",
+            "system_error_offset": {"delta_x": 0.0, "delta_y": 0.0},
+        })
+    jdump("cooperative/data_info.json", data_info)
+    split_path = os.path.join(root, "split.json")
+    with open(split_path, "w") as f:
+        json.dump(split, f)
+    return split_path

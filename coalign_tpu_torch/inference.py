@@ -1,6 +1,6 @@
 """Inference and evaluation: forward + post-processing, AP accumulation.
 
-Port of the anchor path of coalign_tpu/inference.py:37-185 (ref
+Port of coalign_tpu/inference.py:37-185 (ref
 opencood/tools/inference.py, inference_utils.inference_intermediate_fusion,
 inference_late_fusion, inference_no_fusion): intermediate and early fusion
 decode the fused output (make_infer_fn); late and no fusion decode each
@@ -21,11 +21,14 @@ from torch.profiler import record_function
 
 from coalign_tpu_torch.data.prefetch import prefetch
 from coalign_tpu_torch.postprocess.decode import post_process
+from coalign_tpu_torch.postprocess.dense_bev import (DenseBevSpec,
+                                                     decode_dense_map)
 from coalign_tpu_torch.runtime import configure_cuda, resolve_device
 from coalign_tpu_torch.utils import eval_utils as E
 from coalign_tpu_torch.utils.bandwidth import (frame_comm_bytes,
                                                summarize_bandwidth)
-from coalign_tpu_torch.utils.box_utils import boxes_to_corners_3d
+from coalign_tpu_torch.utils.box_utils import (boxes_to_corners_3d,
+                                               project_boxes7_by_tfm)
 from coalign_tpu_torch.utils.nms import nms_rotated
 
 # fusion methods served by make_late_infer_fn, each with the mode it runs:
@@ -91,7 +94,8 @@ def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):
     ``batch`` is the JAX package's batch dict (numpy arrays or tensors):
     points (B, L, N, 4), point_mask (B, L, N), agent_mask (B, L),
     pairwise_t_matrix (B, L, L, 4, 4), transformation_matrix (B, 4, 4).
-    ``anchors`` is the (H, W, A, 7) anchor grid. Returns tensors on the
+    ``anchors`` is the (H, W, A, 7) anchor grid, or a DenseBevSpec for the
+    anchor-free PIXOR family (decode_dense_map). Returns tensors on the
     device: corners3d (B, max_num, 8, 3), boxes7 (B, max_num, 7),
     scores (B, max_num), mask (B, max_num), and the model's ``comm_rate``
     (a 0-dim tensor) where it gives one (Where2comm; coalign_tpu/
@@ -99,6 +103,8 @@ def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):
     process-wide full-float32 and cuDNN-autotuning policy
     (runtime.configure_cuda).
     """
+    if isinstance(anchors, DenseBevSpec):
+        return _make_dense_infer_fn(model, anchors, postprocess_cfg, device)
     dev, anchors, kwargs = infer_setup(model, anchors, postprocess_cfg, device)
     max_keep = int(postprocess_cfg.get("max_num", 100))
 
@@ -116,6 +122,49 @@ def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):
         return dets
 
     return infer
+
+
+def _make_dense_infer_fn(model, spec, postprocess_cfg: dict, device=None):
+    """make_infer_fn of the anchor-free PIXOR family (coalign_tpu/
+    inference.py:53-75): each frame's maps decoded by decode_dense_map at
+    the config's score and NMS thresholds (one IoU launch a batch, max_keep
+    its default 100), its boxes projected by ``transformation_matrix``
+    into the ego frame. No range mask, as in the JAX package."""
+    dev = resolve_device(device)
+    model.to(dev).eval()
+    if dev.type == "cuda":
+        configure_cuda()
+    score_thr = float(postprocess_cfg["target_args"]["score_threshold"])
+    nms_thr = float(postprocess_cfg["nms_thresh"])
+
+    @torch.no_grad()
+    def infer(batch: dict) -> dict:
+        b = to_device(batch, dev)
+        out = model(b)
+        with record_function("stage/post_process"):
+            return dense_post_process(out, b["transformation_matrix"], spec,
+                                      score_thr, nms_thr)
+
+    return infer
+
+
+def dense_post_process(out: dict, transformation_matrix: torch.Tensor, spec,
+                       score_threshold: float, nms_threshold: float) -> dict:
+    """The dense infer fn's post-processing of a PIXOR model's maps
+    (``out``: cls_map, reg_map): decode_dense_map, the boxes projected by
+    ``transformation_matrix`` (B, 4, 4) into the ego frame; corners3d,
+    boxes7, scores and mask, zero where not kept."""
+    det = decode_dense_map(out["cls_map"], out["reg_map"], spec,
+                           score_threshold=score_threshold,
+                           nms_threshold=nms_threshold)
+    boxes = project_boxes7_by_tfm(det["boxes"],
+                                  transformation_matrix[:, None], "hwl")
+    keep = det["valid"]
+    return {"corners3d": boxes_to_corners_3d(boxes, "hwl")
+            * keep[..., None, None],
+            "boxes7": boxes * keep[..., None],
+            "scores": torch.where(keep, det["scores"], 0.0),
+            "mask": keep}
 
 
 def make_late_infer_fn(model, anchors, postprocess_cfg: dict,

@@ -1,8 +1,8 @@
 """Loss registry after the reference's ``loss.core_method`` reflection (ref
 opencood/tools/train_utils.py:149-182; coalign_tpu/loss/__init__.py): the
 port has point_pillar_loss, the stage-1 detector's uncertainty loss,
-DiscoNet's distillation loss, the robust V2VNet and MASH losses and
-VoxelNet's."""
+DiscoNet's distillation loss, the robust V2VNet and MASH losses,
+VoxelNet's and PIXOR's."""
 
 from coalign_tpu_torch.loss.point_pillar_loss import (  # noqa: F401
     PointPillarLoss, build_loss as _build_point_pillar)
@@ -12,7 +12,7 @@ _PORTED = ["point_pillar_loss", "point_pillar_uncertainty_loss",
            "point_pillar_unc_loss", "point_pillar_disconet_loss",
            "disconet_loss", "point_pillar_v2v_robust_loss", "robust_loss",
            "point_pillar_mash_loss", "mash_loss", "voxel_net_loss",
-           "voxelnet_loss"]
+           "voxelnet_loss", "pixor_loss"]
 
 
 def build_loss(cfg: dict):
@@ -38,4 +38,7 @@ def build_loss(cfg: dict):
     if name in ("voxel_net_loss", "voxelnet_loss"):
         from coalign_tpu_torch.loss.voxelnet_loss import build_voxelnet_loss
         return build_voxelnet_loss(args)
+    if name == "pixor_loss":
+        from coalign_tpu_torch.loss.pixor_loss import build_pixor_loss
+        return build_pixor_loss(args)
     raise KeyError(f"loss {name!r} is not ported; have {_PORTED}")

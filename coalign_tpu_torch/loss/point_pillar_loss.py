@@ -143,6 +143,9 @@ class PointPillarLoss:
         yaw_map = anchor_yaw.repeat(k // len(cfg.anchor_yaw_deg))
         offset_rot = limit_period(reg_t[..., 6] + yaw_map - cfg.dir_offset,
                                   0.0, 2 * math.pi)
-        bins = torch.floor(offset_rot / (2 * math.pi / cfg.num_bins)).long()
+        # divided by a tensor: IEEE's division on every device (see
+        # utils/common.limit_period)
+        bins = torch.floor(offset_rot / offset_rot.new_full(
+            (), 2 * math.pi / cfg.num_bins)).long()
         bins = torch.clamp(bins, 0, cfg.num_bins - 1)
         return F.one_hot(bins, cfg.num_bins).to(reg_t.dtype)

@@ -1,6 +1,7 @@
 """The model registry of the port (build_model) and its PointPillars
 models: the CoAlign flagship and the single-agent detectors. The SECOND
-family's models are in models/second_family.py.
+family's models are in models/second_family.py, the PIXOR family's in
+models/pixor.py.
 
 Ports of coalign_tpu/models/zoo.py:
   * PointPillarBaselineMultiscale (:164-213; ref
@@ -59,6 +60,7 @@ from coalign_tpu_torch.models.heads import (DetectionHeads,
                                             detection_heads)
 from coalign_tpu_torch.models.layers import DownsampleConv, NaiveCompressor
 from coalign_tpu_torch.models.pillar_encoder import PillarEncoder
+from coalign_tpu_torch.models.pixor import PIXOR_FAMILY
 from coalign_tpu_torch.models.second_family import MODELS as SECOND_FAMILY
 from coalign_tpu_torch.ops.pillars import PillarSpec
 from coalign_tpu_torch.runtime import resolve_device
@@ -392,7 +394,16 @@ _MODELS = {
     "point_pillar_v2vnet_robust": PointPillarV2VNetRobust,
     "point_pillar_mash": PointPillarMash,
     **SECOND_FAMILY,
+    **PIXOR_FAMILY,
 }
+
+# models of the JAX package that the port does not have yet, each with the
+# ROADMAP item that brings it
+_UNPORTED = {"fpvrcnn": "the two-stage models (ROADMAP item 8)",
+             "fvoxelrcnn": "the two-stage models (ROADMAP item 8)",
+             "lift_splat_shoot": "the LSS camera family (ROADMAP item 7)",
+             "lift_splat_shoot_intermediate":
+                 "the LSS camera family (ROADMAP item 7)"}
 
 
 def _lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -416,6 +427,11 @@ def init_weights(model: nn.Module, generator: torch.Generator):
     ``init_weights(generator)``; nn.Conv3d kernels as the 2D ones."""
     with torch.no_grad():
         for mod in model.modules():
+            # biases first, so that a module's own init_weights can set
+            # one (PIXOR's cls head)
+            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d,
+                                nn.Conv3d)) and mod.bias is not None:
+                mod.bias.zero_()
             if isinstance(mod, (nn.modules.batchnorm._BatchNorm,
                                 nn.LayerNorm)):
                 mod.reset_parameters()
@@ -427,9 +443,6 @@ def init_weights(model: nn.Module, generator: torch.Generator):
                                   nn.Conv3d)):
                 _lecun_normal_(mod.weight, mod.in_channels
                                * math.prod(mod.kernel_size), generator)
-            if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d,
-                                nn.Conv3d)) and mod.bias is not None:
-                mod.bias.zero_()
 
 
 def build_model(config: dict, device=None, seed: int = 0) -> nn.Module:
@@ -441,6 +454,8 @@ def build_model(config: dict, device=None, seed: int = 0) -> nn.Module:
     gives the same model on every device; a checkpoint replaces them
     (utils/weights.py)."""
     name = config["core_method"]
+    if name in _UNPORTED:
+        raise NotImplementedError(f"{name} waits for {_UNPORTED[name]}")
     if name not in _MODELS:
         raise KeyError(f"model {name!r} is not ported; have {sorted(_MODELS)}")
     dev = resolve_device(device)

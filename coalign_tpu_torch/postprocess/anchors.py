@@ -95,7 +95,8 @@ def assign_targets(gt_boxes: torch.Tensor, gt_mask: torch.Tensor,
 
     gt_boxes (B, M, 7) padded center-form gt in ``spec.order``, gt_mask
     (B, M) bool. Returns pos_equal_one (B, H, W, A), neg_equal_one
-    (B, H, W, A) and targets (B, H, W, A*7), float32: the label contract of
+    (B, H, W, A) and targets (B, H, W, A*7), float32 (computed in the gt
+    boxes' dtype, as the JAX package computes them): the label contract of
     ref voxel_postprocessor.py:201-205, NHWC as in the JAX package.
 
     As in the JAX package: IoU is standup IoU with the +1 size convention;
@@ -152,4 +153,4 @@ def assign_targets(gt_boxes: torch.Tensor, gt_mask: torch.Tensor,
     t = torch.where(pos[..., None], t, 0.0)
     return {"pos_equal_one": pos.reshape(b, h, w, a).float(),
             "neg_equal_one": neg.reshape(b, h, w, a).float(),
-            "targets": t.reshape(b, h, w, a * 7)}
+            "targets": t.reshape(b, h, w, a * 7).float()}

@@ -39,8 +39,10 @@ from coalign_tpu_torch.data import build_dataset
 from coalign_tpu_torch.inference import evaluate_dataset
 from coalign_tpu_torch.loss import build_loss
 from coalign_tpu_torch.models.zoo import build_model
+from coalign_tpu_torch.ops.bev_raster import BevSpec
 from coalign_tpu_torch.postprocess.anchors import (generate_anchor_box,
                                                    make_anchor_spec)
+from coalign_tpu_torch.postprocess.dense_bev import DenseBevSpec
 from coalign_tpu_torch.runtime import resolve_device
 from coalign_tpu_torch.train import (build_optimizer, inference_checkpoint,
                                      latest_checkpoint, load_checkpoint,
@@ -57,17 +59,29 @@ _REFUSED_FLAGS = {
 
 def build_all(params: dict, train: bool = True, device=None):
     """yaml params -> (base dataset, batcher, model on ``device``, loss fn,
-    anchor spec)."""
+    anchor spec: an AnchorSpec, or a DenseBevSpec for the PIXOR family's
+    BevPostprocessor)."""
     post = params["postprocess"]
-    if post.get("core_method") == "BevPostprocessor":
-        raise NotImplementedError(
-            "the anchor-free PIXOR family is not ported yet (ROADMAP item 5)")
-    base, batcher = build_dataset(params, train=train)
+    # the model first: a model the port has not yet is refused before any
+    # dataset is read
     model = build_model(params["model"], device=device)
+    base, batcher = build_dataset(params, train=train)
     loss_fn = build_loss(params["loss"])
-    spec = make_anchor_spec(post["anchor_args"], post["target_args"],
-                            post.get("order", "hwl"))
+    if post.get("core_method") == "BevPostprocessor":
+        # the anchor-free PIXOR family: dense label maps, no anchor grid
+        # (ref bev_postprocessor.py; coalign_tpu/tools/run.py:37-44)
+        spec = DenseBevSpec(bev=BevSpec.from_config(
+            params["model"]["args"]["geometry_param"]))
+    else:
+        spec = make_anchor_spec(post["anchor_args"], post["target_args"],
+                                post.get("order", "hwl"))
     return base, batcher, model, loss_fn, spec
+
+
+def _anchors(spec):
+    """What the infer fns take: an AnchorSpec's anchor grid, or the
+    DenseBevSpec itself."""
+    return getattr(spec, "anchors", spec)
 
 
 def postprocess_cfg(params: dict) -> dict:
@@ -170,7 +184,7 @@ def cmd_train(opt):
 
     # the end-of-train eval follows the config's fusion protocol (ref
     # train.py:187-194 runs inference.py with the matching fusion flag)
-    res = evaluate_dataset(model, batcher, base, spec.anchors,
+    res = evaluate_dataset(model, batcher, base, _anchors(spec),
                            postprocess_cfg(params),
                            max_frames=opt.eval_frames,
                            fusion_method=_fusion_method(params), device=dev)
@@ -254,7 +268,7 @@ def cmd_inference(opt):
         opt.fusion_method = _fusion_method(params)
         print(json.dumps({"fusion_method": opt.fusion_method}))
     npy_dir = os.path.join(opt.model_dir, "npy") if opt.save_npy else None
-    res = evaluate_dataset(model, batcher, base, spec.anchors,
+    res = evaluate_dataset(model, batcher, base, _anchors(spec),
                            postprocess_cfg(params),
                            fusion_method=opt.fusion_method,
                            max_frames=opt.eval_frames, npy_dir=npy_dir,

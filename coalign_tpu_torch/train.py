@@ -19,10 +19,25 @@ from torch.profiler import record_function
 from coalign_tpu_torch.data.prefetch import prefetch
 from coalign_tpu_torch.inference import to_device
 from coalign_tpu_torch.postprocess.anchors import AnchorSpec, assign_targets
+from coalign_tpu_torch.postprocess.dense_bev import (DenseBevSpec,
+                                                     assign_dense_targets)
 from coalign_tpu_torch.runtime import configure_cuda, resolve_device
 from coalign_tpu_torch.utils.weights import load_pth
 
 _LABEL_DTYPES = {"gt_boxes": torch.float32, "gt_mask": torch.bool}
+
+
+def assign_labels(gt_boxes, gt_mask, spec, dtype=torch.float32) -> dict:
+    """The step's labels from the gt boxes taken in ``dtype``, the model's,
+    as the JAX package's labels follow its batch's float dtype: the anchor
+    targets of an AnchorSpec (postprocess/anchors.assign_targets, float32
+    as the JAX package casts them), or the dense label map (in ``dtype``)
+    of the anchor-free PIXOR family's DenseBevSpec (postprocess/dense_bev.
+    assign_dense_targets; coalign_tpu/train.py:98-107)."""
+    gt_boxes = gt_boxes.to(dtype)
+    if isinstance(spec, DenseBevSpec):
+        return {"label_map": assign_dense_targets(gt_boxes, gt_mask, spec)}
+    return assign_targets(gt_boxes, gt_mask, spec)
 
 
 def lr_factor(sched_cfg: dict | None, steps_per_epoch: int = 1000):
@@ -82,7 +97,8 @@ def make_train_step(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
     named; on CUDA it sets runtime.configure_cuda's policy).
 
     ``batch`` is the batcher's dict (numpy arrays or tensors). The step
-    assigns labels from ``gt_boxes``/``gt_mask`` on the device, runs the
+    assigns labels from ``gt_boxes``/``gt_mask`` on the device
+    (assign_labels: anchor targets, or PIXOR's dense label map), runs the
     model in train mode, the loss, the backward pass, ``optimizer.step()``
     and ``scheduler.step()``. The terms come back as 0-dim tensors on the
     device, detached: reading them (``float``) is the caller's sync. The
@@ -102,11 +118,13 @@ def make_train_step(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
     spec = anchor_spec.to(dev)
 
     def step(batch: dict) -> dict:
-        b = to_device(batch, dev, next(model.parameters()).dtype)
+        float_dtype = next(model.parameters()).dtype
+        b = to_device(batch, dev, float_dtype)
         with record_function("stage/labels"):
             for key, dtype in _LABEL_DTYPES.items():
                 b[key] = torch.as_tensor(batch[key], dtype=dtype, device=dev)
-            labels = assign_targets(b["gt_boxes"], b["gt_mask"], spec)
+            labels = assign_labels(b["gt_boxes"], b["gt_mask"], spec,
+                                   float_dtype)
         t_out = {}
         if teacher is not None:
             with torch.no_grad(), record_function("stage/teacher"):
@@ -207,8 +225,8 @@ def validate(model, loss_fn, anchor_spec: AnchorSpec, batcher, dataset,
         for batch in prefetch(batcher.batches(dataset, batch_size,
                                               shuffle=False, drop_last=False),
                               size=2, device=dev):
-            labels = assign_targets(batch["gt_boxes"], batch["gt_mask"],
-                                    spec)
+            labels = assign_labels(batch["gt_boxes"], batch["gt_mask"],
+                                   spec)
             total, _ = loss_fn(model(to_device(
                 batch, dev, next(model.parameters()).dtype)), labels)
             losses.append(total)

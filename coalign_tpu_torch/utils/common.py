@@ -28,9 +28,15 @@ def const(xp, value, like):
 
 def limit_period(val, offset: float = 0.5, period: float = 2 * np.pi):
     """Wrap ``val`` into ``[-offset*period, (1-offset)*period)``
-    (ref common_utils.py:70)."""
-    xp = array_namespace(val)
-    return val - xp.floor(val / period + offset) * period
+    (ref common_utils.py:70). A tensor is divided by a tensor, so that
+    the division is IEEE's on every device, as the JAX package's and the
+    CPU's: divided by a Python scalar, CUDA multiplies by its reciprocal,
+    and a value on or next to a period's boundary can wrap into the next
+    period (see ops/voxels.cell_index)."""
+    if isinstance(val, torch.Tensor):
+        return val - torch.floor(val / val.new_full((), period)
+                                 + offset) * period
+    return val - np.floor(val / period + offset) * period
 
 
 def rotate_points_along_z(points, angle):

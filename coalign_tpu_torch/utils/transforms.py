@@ -68,6 +68,20 @@ def pose_to_tfm(pose):
     return xp.stack(rows, axis=-2)
 
 
+def tfm_to_pose(tfm: np.ndarray) -> np.ndarray:
+    """(..., 4, 4) numpy transforms -> (..., 6) poses [x, y, z, roll, yaw,
+    pitch] in degrees, the inverse of pose_to_tfm (ref
+    transformation_utils.py:166; coalign_tpu/utils/transforms.py:90). The
+    dataset readers' host helper."""
+    tfm = np.asarray(tfm)
+    yaw = np.rad2deg(np.arctan2(tfm[..., 1, 0], tfm[..., 0, 0]))
+    roll = np.rad2deg(np.arctan2(-tfm[..., 2, 1], tfm[..., 2, 2]))
+    pitch = np.rad2deg(np.arctan2(
+        tfm[..., 2, 0], np.sqrt(tfm[..., 2, 1] ** 2 + tfm[..., 2, 2] ** 2)))
+    return np.stack([tfm[..., 0, 3], tfm[..., 1, 3], tfm[..., 2, 3], roll,
+                     yaw, pitch], axis=-1)
+
+
 def inverse_tfm(tfm):
     """Closed-form inverse of rigid (..., 4, 4) transforms."""
     xp = array_namespace(tfm)

@@ -22,7 +22,8 @@ model's ``fusion_nets_{i}`` and ``fusion_net.{i}``. It also takes the SECOND
 family's variables (the inverse of ckpt_import.py:708-880:
 ``_SECOND_3D_SLOTS``, ``_conv3d_weight``'s spconv 1.x layout, which the
 port keeps, ``_map_ssfa`` and the CIA-SSD head names; VoxelNet's VFE,
-middle convs and 2D backbone).
+middle convs and 2D backbone), and the PIXOR family's (the inverse of
+ckpt_import.py:652 ``_map_pixor_family``).
 
 Where the reference has weights the JAX package has not, the state dict
 gets zeros, which compute what the JAX package computes: the bias of a
@@ -422,6 +423,29 @@ def _second_family_state(flat: dict, layer_nums) -> dict:
     return out
 
 
+def _pixor_family_state(flat: dict) -> dict:
+    """The PIXOR family's flax variables (flat) -> port arrays: the inverse
+    of ckpt_import.py:652 ``_map_pixor_family``. A Bottleneck is flax's
+    ``block{s}_{i}`` and the reference's ``block{s}.{i}``; its
+    ``down_conv``/``down_bn`` are ``downsample.0``/``.1``; the deconvs'
+    kernels are TorchConvTranspose2d's flipped (kh, kw, in, out)."""
+    out = {}
+    for path, value in flat.items():
+        parts = path.split("/")
+        leaf, mod = parts[-1], parts[:-1]
+        if m := re.fullmatch(r"block(\d)_(\d+)", mod[1]):
+            sub = {"down_conv": "downsample.0", "down_bn": "downsample.1"}
+            name = (f"{mod[0]}.block{m[1]}.{m[2]}."
+                    f"{sub.get(mod[2], mod[2])}")
+        else:
+            name = ".".join(mod)
+        if leaf == "kernel":
+            value = (_tconv(value) if mod[-1].startswith("deconv")
+                     else _conv(value))
+        out[f"{name}.{_LEAF_FIELDS[leaf]}"] = value
+    return out
+
+
 def from_jax_params(variables: dict, layer_nums=None) -> dict:
     """coalign_tpu PointPillars variables (nested numpy dicts) -> port
     state dict, including each batch norm's ``num_batches_tracked``.
@@ -436,6 +460,8 @@ def from_jax_params(variables: dict, layer_nums=None) -> dict:
     if any(p.startswith(("VoxelBackbone8x_0/", "VFELayer_0/", "SSFA_0/"))
            for p in flat):
         arrays = _second_family_state(flat, layer_nums).items()
+    elif any(p.startswith("backbone/block2_0/") for p in flat):
+        arrays = _pixor_family_state(flat).items()
     else:
         v2xvit_blocks = _v2xvit_blocks(flat)
         arrays = [kv for path, value in flat.items()

@@ -228,15 +228,14 @@ def test_refused_commands_raise(trained, tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="no net_epoch"):
         run.main(["inference", "--model_dir", str(tmp_path / "orbax"), *CPU])
     # the real precalc.yaml's SECOND stage-1 builds, the family ported: none
-    # of its dataset directories exists here, so it writes nothing; PIXOR,
-    # LSS and DAIR-V2X are refused
+    # of its dataset directories exists here, so it writes nothing; LSS and
+    # the two-stage models are refused
     hypes = os.path.join(os.path.dirname(__file__), "..", "coalign_tpu",
                          "hypes_yaml")
     assert run.main(["precalc", "-y", os.path.join(hypes, "opv2v",
                                                    "precalc.yaml"), *CPU]) == []
-    for rel, item in (("opv2v/pixor_intermediate.yaml", "item 5"),
-                      ("opv2v/lss_selfatt.yaml", "item 7"),
-                      ("dairv2x/pointpillar_coalign.yaml", "item 4")):
+    for rel, item in (("opv2v/lss_selfatt.yaml", "item 7"),
+                      ("dairv2x/fpvrcnn.yaml", "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             run.main(["train", "-y", os.path.join(hypes, rel), *CPU])
     # without a GPU the commands need --device cpu

@@ -14,7 +14,8 @@ from coalign_tpu_torch.kernels import rotated_iou as K
 from coalign_tpu_torch.utils.iou import rotated_iou_plain, separated_pairs
 from coalign_tpu_torch.utils.nms import nms_rotated
 
-from chip_smoke import check_degenerate, kernel_cases, seeded_corners
+from chip_smoke import (FAR_LONG_BOXES, check_degenerate, kernel_cases,
+                        seeded_corners)
 
 
 @pytest.fixture
@@ -48,7 +49,7 @@ def test_kernel_matches_plain(cuda, n, m):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["ragged", "all_cleared", "identical",
-                                  "world140"])
+                                  "identical_far", "world140"])
 def test_kernel_matches_plain_on_the_smoke_cases(cuda, name):
     # chip_smoke.py's kernel-phase cases: a ragged tile edge, every pair
     # cleared by the cull (exactly 0), one box repeated (IoU 1), +-140 m
@@ -512,3 +513,25 @@ def test_cell_indices_on_cuda_match_cpu(cuda):
         want = ids_fn(torch.from_numpy(pts), torch.from_numpy(mask), spec)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_periods_and_direction_bins_on_cuda_match_cpu(cuda):
+    # fault 10: limit_period and the direction bins divide by a tensor, so
+    # that yaws at and one ulp beside k pi / 2 and k 2 pi, and 1M random
+    # ones, wrap and bin on the card as on the CPU (chip_smoke's periods
+    # phase)
+    from chip_smoke import periods_check
+    assert periods_check()["bins_equal"]
+
+
+@pytest.mark.cuda
+def test_far_long_boxes_keep_their_iou_with_themselves(cuda):
+    # fault 11: with its point-in-quad edges taken from world coordinates,
+    # the kernel gave these DAIR-V2X stage-1 boxes (10 m x 2.2 m at ~100 m)
+    # an IoU with themselves of 0 and 1/3; the edges now come from the
+    # translated corners, as the plain version's
+    c = torch.from_numpy(FAR_LONG_BOXES).to(cuda)
+    got = torch.diagonal(K.rotated_iou(c, c))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, torch.ones_like(got), atol=1e-6, rtol=0)

@@ -18,7 +18,7 @@
     early and late fusion, with pose noise, in train mode (augmentation,
     late fusion's one agent a frame) and eval mode, the JAX batcher held to
     its numpy path, at tests/test_torch_data.py's bounds;
-  * the datasets and inputs that are not ported raise.
+  * the inputs and models that are not ported raise.
 """
 
 import filecmp
@@ -255,9 +255,16 @@ def test_v2xset_reads_as_opv2v(jax_tree, jax_numpy_batcher):
 
 
 def test_unported_datasets_and_inputs_raise(jax_tree, scenes, tmp_path):
-    for name, item in (("dairv2x", "item 4"), ("v2xsim", "item 4")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_dataset(_params(jax_tree, "intermediate", name))
+    # DAIR-V2X and V2X-Sim read (tests/test_torch_dairv2x_v2xsim.py); the
+    # two-stage model of their fpvrcnn.yaml is refused
+    from coalign_tpu_torch.config.yaml_utils import load_yaml
+    from coalign_tpu_torch.models.zoo import build_model
+    for folder in ("dairv2x", "v2xsim"):
+        y = load_yaml(os.path.join(os.path.dirname(__file__), "..",
+                                   "coalign_tpu", "hypes_yaml", folder,
+                                   "fpvrcnn.yaml"))
+        with pytest.raises(NotImplementedError, match="item 8"):
+            build_model(y["model"], device="cpu")
     cam = dict(_params(jax_tree, "intermediate"), input_source=["camera"])
     with pytest.raises(NotImplementedError, match="item 7"):
         build_dataset(cam)

@@ -66,6 +66,25 @@ def test_self_iou_diagonal_is_one():
     np.testing.assert_allclose(diag.numpy(), 1.0, atol=1e-4)
 
 
+def test_self_iou_of_far_long_boxes_is_one():
+    # the kernel's fault 11 (FAR_LONG_BOXES: DAIR-V2X stage-1 boxes of 10 m x
+    # 2.2 m at ~100 m, whose IoU with themselves it gave as 0 and 1/3): the
+    # plain version, its reference, gives 1 on them and on the kernel
+    # phase's identical_far case, and the JAX package's untranslated form
+    # agrees within its cancellation at that range
+    from chip_smoke import FAR_LONG_BOXES, kernel_cases
+    c = torch.from_numpy(FAR_LONG_BOXES)
+    diag = torch.diagonal(rotated_iou_plain(c, c))
+    torch.testing.assert_close(diag, torch.ones_like(diag), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(
+        np.diagonal(np.asarray(rotated_iou_corners(FAR_LONG_BOXES,
+                                                   FAR_LONG_BOXES))),
+        1.0, atol=1e-3)
+    c1, c2 = kernel_cases("identical_far")
+    diag = torch.diagonal(rotated_iou_plain(c1, c2))
+    torch.testing.assert_close(diag, torch.ones_like(diag), atol=1e-6, rtol=0)
+
+
 def test_batched_leading_dim_matches_per_frame():
     c = torch.from_numpy(_corners(3 * 20, 8, 4.0).reshape(3, 20, 4, 2))
     got = rotated_iou_plain(c, c)
