@@ -151,6 +151,28 @@ Phases, each printing one JSON line with its elapsed seconds:
              set), 1 IoU launch, 20 timed requests and a profile;
              pixor_recordings, pixor.pth and pixor_inter.pth against their
              recordings on the card; pixor_train, its B=4 step.
+ 22. lss_cells   fault 12 on the card: the splat's cells of the full-width
+             LSS geometry (4.6M frustum points) and of 1M points on and
+             beside cell boundaries, CUDA equal to the CPU;
+ 23. lss     lss_coalign_fusion.yaml at full width (5 agents, 4 cameras of
+             480 x 640, 48 LID bins, a 240 x 240 BEV), seeded weights:
+             CUDA against the CPU (maps within 2e-3 of each map's largest,
+             the same box set at a score threshold lowered until 10 boxes
+             remain), 1 IoU launch, 20 timed requests; lss_profile by stage
+             (camera_trunk, lift, splat, bev_encoder, fusion, heads,
+             post_process); lss_single, lss_single_efficientnet and
+             _resnet101 once each through late fusion (2 IoU launches);
+     lss_train   its B = 4 step (3 warm-up, 5 timed), peak memory, loss
+             terms; lss_train_parity, a tiny LSS's step on CUDA against the
+             CPU (train_parity's bounds);
+ 24. camera_disk   a camera fixture tree (4 frames, 5 agents, 4 PNGs of
+             600 x 800 each) written by the port, the host's read-and-decode
+             ms a frame, run inference of lss_coalign_fusion.yaml on it
+             (frames/s, 1 IoU launch a frame);
+ 25. bf16    the flagship and the LSS request in float32 and under
+             set_compute_dtype(torch.bfloat16): ms, cls_preds' mean
+             relative distance (< 0.15), float32 heads; the trained tiny
+             flagship's AP in both (reported).
 Then one JSON line describing each kernel (with its launches on each
 path above), timed at six shapes (the main
 path's NMS input; that input stacked 8 times, a B=8 batch's one launch; 8
@@ -1986,7 +2008,8 @@ def train_rest(card) -> dict:
 
 def train_lines(card, names, phase_name: str, steps: tuple) -> dict:
     """One ``phase_name`` line a yaml of ``names`` (_rest_train_setup):
-    ``steps`` warm-up and timed steps (CUDA events) at B = 4, full width;
+    ``steps`` warm-up and timed steps (CUDA events) at B = 4, full width,
+    cuDNN autotuned but for NO_AUTOTUNE_TRAIN's;
     ms a step, peak memory, the first and last loss terms, every term
     finite, no IoU launch in a step. Robust V2VNet's stages: the
     parameters the stage freezes bit-identical after the steps, the
@@ -1999,6 +2022,7 @@ def train_lines(card, names, phase_name: str, steps: tuple) -> dict:
     spec = make_anchor_spec(FULL_ANCHORS, YAML_TARGETS)
     launches = {}
     for name in names:
+        autotune = name not in NO_AUTOTUNE_TRAIN
         for batch_size in (TRAIN_BATCH, 2):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2008,6 +2032,8 @@ def train_lines(card, names, phase_name: str, steps: tuple) -> dict:
                 before = {k: v.clone() for k, v in model.state_dict().items()}
                 step = make_train_step(model, loss, spec, opt, sched,
                                        teacher=teacher)
+                # after make_train_step, whose configure_cuda turns it on
+                torch.backends.cudnn.benchmark = autotune
                 warm, timed = steps
 
                 def run():
@@ -2051,9 +2077,10 @@ def train_lines(card, names, phase_name: str, steps: tuple) -> dict:
             fields["teacher"] = "fullscale_multiscale.pth, frozen"
         ms = start.elapsed_time(end) / steps[1]
         launches[name] = n_iou
+        torch.backends.cudnn.benchmark = True
         phase(phase_name, config=name, batch=batch_size,
               note=None if batch_size == TRAIN_BATCH else
-              f"does not fit at B={TRAIN_BATCH}",
+              f"does not fit at B={TRAIN_BATCH}", cudnn_autotune=autotune,
               timed_steps=steps[1], ms_per_step=ms,
               frames_per_s=batch_size * 1000.0 / ms, peak_mem_gib=peak,
               first_step={k: float(v) for k, v in terms[0].items()},
@@ -2868,7 +2895,7 @@ def _map_errors(got: dict, want: dict) -> dict:
 
 
 def separated_threshold(scores: torch.Tensor, floor: float,
-                        least: int = 48) -> tuple:
+                        least: int = 48, min_gap: float = 1e-3) -> tuple:
     """A score threshold at which two devices' box sets can be compared:
     the yaml's (``floor``) when it leaves fewer than 512 candidates a frame
     (the top-K prefilter's size), ``least`` at least in all, and no score
@@ -2876,7 +2903,8 @@ def separated_threshold(scores: torch.Tensor, floor: float,
     midpoints between consecutive distinct scores that do so, the one in
     the widest gap (above or below the yaml's, as the baselines phase
     lowers its threshold until 10 boxes remain), at least 1e-3 from any
-    score.
+    score (``min_gap``: 1e-3 unless the caller measured the devices'
+    difference).
     ``scores`` (F, K) are sigmoid scores. Returns (threshold, distance of
     the nearest score to it)."""
     per_frame = torch.sort(scores, dim=1).values
@@ -2893,7 +2921,7 @@ def separated_threshold(scores: torch.Tensor, floor: float,
 
     t = torch.tensor([floor], dtype=scores.dtype)
     margin = float((scores - floor).abs().min())
-    if bool(fits(t)[0]) and margin > 1e-3:
+    if bool(fits(t)[0]) and margin > min_gap:
         return floor, margin
     values = torch.unique(scores)                     # ascending
     mids = (values[:-1] + values[1:]) / 2
@@ -2903,7 +2931,7 @@ def separated_threshold(scores: torch.Tensor, floor: float,
           f"above {floor} {counts(t)[:, 0].tolist()}, each frame's top "
           f"{per_frame[:, -3:].tolist()}")
     best = int(torch.argmax(torch.where(ok, gaps, -1.0)))
-    check(float(gaps[best]) > 1e-3,
+    check(float(gaps[best]) > min_gap,
           f"no separated score threshold: gap {float(gaps[best]):.2e}")
     return float(mids[best]), float(gaps[best])
 
@@ -3249,6 +3277,11 @@ def second_step_parity() -> dict:
 # the PIXOR family.
 
 BASELINE_TRAIN_STEPS = (1, 3)             # warm-up, timed
+# train lines timed on cuDNN's heuristic algorithms, without autotuning:
+# V2VNet's float32 ConvGRU autotunes for ~130 s in its first step, which
+# the script's 1,200 s cannot spare beside the LSS phases (its step takes
+# ~2.7 s on the heuristics' algorithms, ~2.2 s autotuned)
+NO_AUTOTUNE_TRAIN = ("pointpillar_v2vnet",)
 # train_parity's tiny twins of the baselines with a learned fusion: the tiny
 # flagship's trunk (E2E_ARGS: 64 channels fused at 32 x 32) with each fusion
 BASELINE_TWIN_BASE = {k: v for k, v in E2E_ARGS.items()
@@ -3754,6 +3787,425 @@ def pixor_check(card) -> dict:
     return {"request": launches, "train_step": n_iou}
 
 
+# The LSS camera family at full width: the OPV2V lss_*.yaml (read in
+# place) on 5 agents of SyntheticCameraScenes' rendered rigs, 4 cameras of
+# 480 x 640 each (the yamls' final_dim; focal 320 px, a 90 degree view);
+# seeded weights (the three LSS recordings are held on the CPU,
+# tests/test_torch_lss.py, their .pth kept out of chip copies).
+LSS_RANGE = [-48.0, -48.0, -3.0, 48.0, 48.0, 1.0]
+LSS_SCENES = dict(num_frames=4, num_agents=5, num_objects=20,
+                  lidar_range=LSS_RANGE, points_per_object=8,
+                  ground_points=8, seed=31, cam_hw=(480, 640), num_cams=4,
+                  focal=320.0)
+LSS_YAML = "lss_coalign_fusion"
+LSS_SINGLES = ("lss_single_efficientnet", "lss_single_resnet101")
+LSS_REQUESTS = 20
+LSS_TRAIN_STEPS = (3, 5)                  # warm-up, timed
+LSS_MAP_BOUND = 2e-3                      # of each map's largest magnitude
+# the tiny LSS of tests/test_torch_lss.py's sizes, for the step parity,
+# with lss_single_resnet101.yaml's camera encoder: EfficientNet-b0's expand
+# convs follow a train-mode batch norm (a zero-mean input), so their norms'
+# running means are 0 in exact arithmetic and rounding noise on either
+# device, which train_parity's relative bound on the statistics cannot hold
+LSS_TINY_RANGE = [-8.0, -8.0, -3.0, 8.0, 8.0, 1.0]
+LSS_TINY = {"core_method": "lift_splat_shoot_intermediate", "args": {
+    "camera_encoder": "Resnet101",
+    "grid_conf": {"xbound": [-8, 8, 0.4], "ybound": [-8, 8, 0.4],
+                  "zbound": [-10, 10, 20.0], "ddiscr": [2, 10, 8],
+                  "mode": "LID"},
+    "data_aug_conf": {"final_dim": [64, 96]}, "img_features": 16,
+    "anchor_number": 2, "supervise_single": True,
+    "fusion_args": {"core_method": "att_ms", "att": {"feat_dim": 128}}}}
+LSS_TINY_ANCHORS = {"W": 40, "H": 40, "l": 3.9, "w": 1.6, "h": 1.56,
+                    "r": [0, 90], "vw": 0.4, "vh": 0.4, "feature_stride": 2,
+                    "cav_lidar_range": LSS_TINY_RANGE}
+LSS_TINY_LOSS = {"core_method": "point_pillar_loss", "args": {
+    k: v for k, v in E2E_LOSS.items() if k != "dir"}}
+# OPV2V's camera images are 600 x 800, resized to final_dim on the host
+CAMERA_DISK_HW = (600, 800)
+CAMERA_DISK_FRAMES = 4
+
+
+def lss_params(name: str) -> dict:
+    from coalign_tpu_torch.config.yaml_utils import load_yaml
+    return load_yaml(os.path.join(HYPES, f"{name}.yaml"))
+
+
+def lss_batch(frames: int = 1, max_cav: int = 5) -> dict:
+    """CameraBatcher's batch of the first ``frames`` LSS_SCENES frames."""
+    from coalign_tpu_torch.data.camera_batch import CameraBatcher
+    from coalign_tpu_torch.data.synthetic import SyntheticCameraScenes
+    scenes = SyntheticCameraScenes(**LSS_SCENES)
+    return CameraBatcher(max_cav=max_cav, num_cams=4, final_dim=(480, 640),
+                         lidar_range=LSS_RANGE).assemble(
+        [scenes[i] for i in range(frames)])
+
+
+def lss_cells_check() -> dict:
+    """Fault 12 on the card: the splat's cells (ops/lss.splat_cells) of the
+    full-width geometry, lss_coalign_fusion.yaml's frustum (48 LID bins at
+    60 x 80) through the 5 agents' rigs of LSS_SCENES (4.6M points), and of
+    1M points on and one ulp beside the x and z cell boundaries, CUDA equal
+    to the CPU."""
+    from coalign_tpu_torch.ops.lss import LSSSpec, get_geometry, splat_cells
+    args = lss_params(LSS_YAML)["model"]["args"]
+    spec = LSSSpec.from_config(args["grid_conf"], args["data_aug_conf"])
+    cams = {k: torch.from_numpy(v[0]) for k, v in
+            lss_batch()["image_inputs"].items() if k != "imgs"}
+    geom = get_geometry(torch.from_numpy(spec.frustum()), cams["rots"],
+                        cams["trans"], cams["intrins"], cams["post_rots"],
+                        cams["post_trans"])
+    rng = np.random.default_rng(12)
+    plane = rng.uniform(LSS_RANGE[:3], LSS_RANGE[3:], (1_000_000, 3)).astype(
+        np.float32)
+    edges = np.float32(-48.0) + np.float32(0.4) * np.arange(
+        241, dtype=np.float32)
+    x = edges[rng.integers(0, 241, 500_000)]
+    side = rng.integers(0, 3, 500_000)          # on, below, above
+    plane[:500_000, 0] = np.where(side == 0, x, np.nextafter(
+        x, np.where(side == 1, -np.inf, np.inf).astype(np.float32)))
+    z = np.float32(-10.0)                       # the grid's bottom z
+    plane[500_000:, 2] = np.where(side == 0, z, np.nextafter(
+        z, np.where(side == 1, -np.inf, np.inf).astype(np.float32)))
+    out = {}
+    for name, pts in (("frustum", geom), ("boundary_plane",
+                                          torch.from_numpy(plane)[None])):
+        want = splat_cells(pts, spec)
+        got = splat_cells(pts.cuda(), spec).cpu()
+        torch.cuda.synchronize()
+        out[name] = {"points": int(want.numel()),
+                     "in_grid": int((want < pts.shape[0] * spec.nz * spec.ny
+                                     * spec.nx).sum()),
+                     "cells_differing": int((got != want).sum())}
+        check(torch.equal(got, want), f"lss cells {name}: "
+              f"{out[name]['cells_differing']} differ on the card")
+    out["equal"] = True
+    return out
+
+
+class _FixedMaps(torch.nn.Module):
+    """A model that gives precomputed maps: the CPU reference's
+    post-processing without a second CPU forward."""
+
+    def __init__(self, maps: dict):
+        super().__init__()
+        self.maps = maps
+
+    def forward(self, batch):
+        return self.maps
+
+
+def lss_parity(name: str, batch: dict) -> tuple:
+    """The yaml ``name``'s LSS model (seed 0) on ``batch``, CUDA against
+    the CPU: every map within LSS_MAP_BOUND of its largest magnitude, and
+    the same box set (match_box_sets' bounds) through the yaml's fusion
+    protocol (make_fusion_infer_fn; late for the single-agent yamls). A
+    seeded LSS's maps are ~1e-8 (EfficientNet's squeeze gates and swishes
+    shrink its features block by block), so every score ties at 0.5: the
+    cls head is rescaled as the SECOND phase's (spread_cls_scores) and the
+    boxes compared at separated_threshold's score, at least
+    BASELINE_MIN_BOXES of them on the CPU. Returns (the fields, the CUDA
+    infer fn at that threshold, the CUDA model)."""
+    from coalign_tpu_torch.inference import make_fusion_infer_fn, to_device
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.runtime import configure_cuda
+    from coalign_tpu_torch.tools.run import postprocess_cfg
+    configure_cuda()
+    params = lss_params(name)
+    post = postprocess_cfg(params)
+    fusion = params["fusion"]["core_method"]
+    anchors = generate_anchor_box(post["anchor_args"])
+    models = {dev: build_model(params["model"], device=dev, seed=0)
+              for dev in ("cuda", "cpu")}
+    with torch.no_grad():
+        shift = spread_cls_scores(
+            models, models["cuda"](to_device(batch, "cuda"))["cls_preds"])
+        cuda_maps = models["cuda"](to_device(batch, "cuda"))
+        t = time.perf_counter()
+        cpu_maps = models["cpu"](to_device(batch, "cpu"))
+        cpu_s = time.perf_counter() - t
+    map_err = {}
+    for key, want in cpu_maps.items():
+        got = cuda_maps[key].float().cpu()
+        check(bool(torch.isfinite(got).all()), f"{name} {key} not finite")
+        map_err[key] = float((got - want).abs().max()
+                             / want.abs().max().clamp_min(1e-30))
+        check(map_err[key] < LSS_MAP_BOUND,
+              f"{name} {key}: CUDA vs CPU {map_err[key]:.2e}")
+    scores = torch.sigmoid(cuda_maps["cls_preds"].permute(0, 2, 3, 1)
+                           .flatten(1)).cpu()
+    cpu_scores = torch.sigmoid(cpu_maps["cls_preds"].permute(0, 2, 3, 1)
+                               .flatten(1))
+    score_diff = float((scores - cpu_scores).abs().max())
+    # the seeded boxes are the anchors (reg ~0), which the NMS thins: more
+    # candidates until BASELINE_MIN_BOXES survive it, at a threshold ten
+    # times the devices' largest score difference from every score
+    for least in (48, 128, 256, 480):
+        threshold, margin = separated_threshold(
+            scores, float(post["target_args"]["score_threshold"]), least,
+            min_gap=max(10 * score_diff, 1e-6))
+        cfg = {**post, "target_args": {**post["target_args"],
+                                       "score_threshold": threshold}}
+        ref = make_fusion_infer_fn(_FixedMaps(cpu_maps), anchors, cfg,
+                                   fusion, device="cpu")(batch)
+        if int(ref["mask"].sum()) >= BASELINE_MIN_BOXES:
+            break
+    check(int(ref["mask"].sum()) >= BASELINE_MIN_BOXES,
+          f"{name}: {int(ref['mask'].sum())} boxes at score {threshold}")
+    infer = make_fusion_infer_fn(models["cuda"], anchors, cfg, fusion)
+    counts, worst_iou, worst_ds = same_box_sets(infer(batch), ref)
+    return ({"yaml": name, "core_method": params["model"]["core_method"],
+             "fusion": fusion, "cpu_forward_s": cpu_s,
+             "score_threshold": threshold, "threshold_margin": margin,
+             "candidates_at_least": least,
+             "max_score_diff_maps": score_diff,
+             "yaml_score_threshold":
+                 float(post["target_args"]["score_threshold"]),
+             "cls_scale_shift": shift,
+             "map_max_rel_err": map_err, "boxes": counts[0],
+             "min_matched_iou": worst_iou, "max_score_diff": worst_ds},
+            infer, models["cuda"])
+
+
+def lss_check(card) -> tuple:
+    """The lss phase: lss_coalign_fusion.yaml at full width on LSS_SCENES'
+    first frame (B = 1, 5 agents, 20 images of 480 x 640): lss_parity,
+    then one request with its IoU-kernel launches counted (exactly 1) and
+    its peak memory, LSS_REQUESTS timed requests (CUDA events) and a
+    profile by stage (camera_trunk, lift, splat, bev_encoder with its
+    fusion, heads, post_process); then lss_single, one line for each of
+    LSS_SINGLES (late fusion: 2 IoU launches). Returns (the launches of an
+    LSS request, the infer fn, its model, the batch)."""
+    batch = lss_batch()
+    fields, infer, model = lss_parity(LSS_YAML, batch)
+    torch.cuda.reset_peak_memory_stats()
+    _, launches = counted_call(infer, batch)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches == 1, f"{launches} IoU launches in an LSS request")
+    ms = event_ms(lambda: infer(batch), reps=LSS_REQUESTS)
+    phase("lss", **fields, agents=5, cameras=4, image_hw=[480, 640],
+          frustum_points=5 * 4 * 48 * 60 * 80, rotated_iou_launches=launches,
+          peak_mem_gib=peak, requests=LSS_REQUESTS, ms_per_frame=ms,
+          frames_per_s=1000.0 / ms, card=card)
+    phase("lss_profile", **profile_calls(lambda: infer(batch)), card=card)
+    single_launches = {}
+    for name in LSS_SINGLES:
+        fields, single, _ = lss_parity(name, batch)
+        _, n = counted_call(single, batch)
+        check(n == 2, f"{n} IoU launches in a late {name} request")
+        single_launches[name] = n
+        phase("lss_single", **fields, rotated_iou_launches=n,
+              ms_per_frame=event_ms(lambda: single(batch), reps=5),
+              card=card)
+        del single
+    torch.cuda.empty_cache()
+    return {"request": launches, **single_launches}, infer, model, batch
+
+
+def _lss_tiny_batch() -> dict:
+    """Two frames of 2 agents of rendered 64 x 96 views (LSS_TINY's
+    sizes) with their gt, for the step parity."""
+    from coalign_tpu_torch.data.camera_batch import CameraBatcher
+    from coalign_tpu_torch.data.synthetic import SyntheticCameraScenes
+    scenes = SyntheticCameraScenes(
+        num_frames=2, num_agents=2, num_objects=4, lidar_range=LSS_TINY_RANGE,
+        points_per_object=8, ground_points=8, seed=13, cam_hw=(64, 96),
+        num_cams=2, focal=48.0)
+    return CameraBatcher(max_cav=2, num_cams=2, final_dim=(64, 96),
+                         max_objects=8, lidar_range=LSS_TINY_RANGE).assemble(
+        [scenes[0], scenes[1]])
+
+
+def lss_train(card) -> int:
+    """The lss_train phase: lss_coalign_fusion.yaml's B = 4 train step at
+    full width from scratch (its loss, Adam with weight decay, schedule;
+    the camera encoder frozen, as the yaml's model does), LSS_TRAIN_STEPS
+    warm-up and timed steps (CUDA events): ms, peak memory, the first and
+    last loss terms, no IoU launch; then lss_train_parity, the tiny LSS's
+    step on CUDA against the CPU (train_parity's bounds). Returns the IoU
+    launches of a step."""
+    from coalign_tpu_torch.loss import build_loss
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
+    from coalign_tpu_torch.train import build_optimizer, make_train_step
+    params = lss_params(LSS_YAML)
+    post = params["postprocess"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(params["model"], seed=0)
+    opt, sched = build_optimizer(model.parameters(), params["optimizer"],
+                                 params.get("lr_scheduler"))
+    step = make_train_step(model, build_loss(params["loss"]),
+                           make_anchor_spec(post["anchor_args"],
+                                            post["target_args"]), opt, sched)
+    batch = lss_batch(frames=TRAIN_BATCH)
+    warm, timed = LSS_TRAIN_STEPS
+
+    def run():
+        terms = [step(batch) for _ in range(warm)]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        terms += [step(batch) for _ in range(timed)]
+        end.record()
+        return terms, start, end
+
+    (terms, start, end), n_iou = counted_call(run)
+    ms = start.elapsed_time(end) / timed
+    check(all(np.isfinite(float(v)) for t in terms for v in t.values()),
+          "lss_train: a loss term is not finite")
+    check(n_iou == 0, f"lss_train: {n_iou} IoU launches in a train step")
+    phase("lss_train", config=LSS_YAML, batch=TRAIN_BATCH, agents=5,
+          timed_steps=timed, ms_per_step=ms,
+          frames_per_s=TRAIN_BATCH * 1000.0 / ms,
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+          first_step={k: float(v) for k, v in terms[0].items()},
+          last_step={k: float(v) for k, v in terms[-1].items()}, card=card)
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    phase("lss_train_parity", **train_parity(
+        _lss_tiny_batch(), LSS_TINY, LSS_TINY_LOSS,
+        anchor_args=LSS_TINY_ANCHORS))
+    return n_iou
+
+
+def camera_disk_check(card) -> dict:
+    """The camera_disk phase: an OPV2V camera fixture tree written by the
+    port (data/fixtures.py, PNGs by data/image_io.write_png) of
+    CAMERA_DISK_FRAMES frames of 5 agents, 4 cameras of 600 x 800 (OPV2V's
+    size) each; the host's read-and-decode ms a frame (the reader and the
+    camera batcher at B = 1: 20 PNGs decoded and resized to 480 x 640);
+    then run inference of a reference-style run directory of
+    lss_coalign_fusion.yaml on it (seed-0 weights): frames/s of the whole
+    command and of its eval loop, 1 IoU launch a frame. Returns the IoU
+    launches a CLI frame."""
+    from coalign_tpu_torch.config.yaml_utils import save_yaml
+    from coalign_tpu_torch.data import build_dataset
+    from coalign_tpu_torch.data.fixtures import write_opv2v_fixture
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.tools import run
+    import shutil
+    work = os.path.join(ROOT, "coalign_tpu_torch", "_build", "camera_disk")
+    shutil.rmtree(work, ignore_errors=True)
+    t = time.perf_counter()
+    tree = write_opv2v_fixture(
+        os.path.join(work, "tree"), SyntheticScenes(
+            num_frames=CAMERA_DISK_FRAMES, num_agents=5, num_objects=20,
+            lidar_range=LSS_RANGE, points_per_object=8, ground_points=8,
+            seed=41), frames_per_scenario=CAMERA_DISK_FRAMES,
+        with_cameras=True, cam_hw=CAMERA_DISK_HW)
+    write_s = time.perf_counter() - t
+    params = lss_params(LSS_YAML)
+    params.update(root_dir=tree, validate_dir=tree, test_dir=None)
+    base, batcher = build_dataset(params, train=False)
+    t = time.perf_counter()
+    for i in range(len(base)):
+        batcher.assemble([base[i]])
+    read_ms = (time.perf_counter() - t) * 1e3 / len(base)
+    ckpt = os.path.join(work, "seed0.pth")
+    torch.save(build_model(params["model"], device="cpu", seed=0)
+               .state_dict(), ckpt)
+    run_dir = write_run_dir(os.path.join(work, "run"), params, ckpt)
+    t = time.perf_counter()
+    (res, text), launches = counted_call(
+        cli, run.main, ["inference", "--model_dir", run_dir])
+    cli_s = time.perf_counter() - t
+    check('"loaded_checkpoint": "net_epoch1.pth"' in text,
+          "camera_disk: the checkpoint was not loaded")
+    check(res["frames"] == CAMERA_DISK_FRAMES
+          and launches == CAMERA_DISK_FRAMES,
+          f"camera_disk: {launches} IoU launches over {res['frames']} "
+          "frames")
+    save_yaml(res, os.path.join(work, "eval.yaml"))
+    phase("camera_disk", frames=CAMERA_DISK_FRAMES, agents=5, cameras=4,
+          image_hw=list(CAMERA_DISK_HW), final_hw=[480, 640],
+          write_s=write_s, host_read_decode_ms_per_frame=read_ms,
+          cli_s=cli_s, cli_frames_per_s=CAMERA_DISK_FRAMES / cli_s,
+          eval=res, rotated_iou_launches=launches, card=card)
+    return launches / CAMERA_DISK_FRAMES
+
+
+def bf16_check(card, lss: tuple, tiny) -> dict:
+    """The bf16 phase: the full-width flagship (fullscale_multiscale.pth, the
+    recorded frame) and the LSS request (``lss``: its infer fn, model and
+    batch), each in float32 and under set_compute_dtype(torch.bfloat16):
+    ms a request (CUDA events, 20 requests) in each, the mean relative
+    distance of cls_preds (mean |bf16 - f32| / mean |f32|), held below
+    tests/test_bf16.py's 0.15, every map finite and the heads' outputs
+    float32; the IoU launches of a bf16 request and its profile by stage;
+    then the AP30/50/70 of the
+    train_ap phase's trained tiny flagship (``tiny``) in bf16 beside its
+    float32 AP, reported, not held. The policy is set back to
+    None afterwards, whatever happens. Returns the IoU launches of the bf16
+    requests."""
+    from coalign_tpu_torch.inference import make_infer_fn, to_device
+    from coalign_tpu_torch.models.layers import set_compute_dtype
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.utils.weights import load_pth
+    lss_infer, lss_model, lss_in = lss
+    batch, io = fullscale_batch()
+    model = build_model({"core_method": "point_pillar_baseline_multiscale",
+                         "args": FULL_ARGS})
+    load_pth(model, os.path.join(GOLDEN, "fullscale_multiscale.pth"))
+    infer = make_infer_fn(model, generate_anchor_box(FULL_ANCHORS), {
+        "target_args": {"score_threshold": float(io["score_threshold"])},
+        "nms_thresh": float(io["nms_thresh"]),
+        "gt_range": FULL_ARGS["lidar_range"], "dir_args": FULL_ARGS["dir_args"],
+        "max_num": 100})
+    out, launches = {}, {}
+    try:
+        for name, m, fn, b in (("flagship", model, infer, batch),
+                               ("lss", lss_model, lss_infer, lss_in)):
+            maps, ms = {}, {}
+            for policy in (None, torch.bfloat16):
+                set_compute_dtype(policy)
+                key = "bf16" if policy else "float32"
+                with torch.no_grad():
+                    maps[key] = m(to_device(b, "cuda"))
+                ms[key] = event_ms(lambda: fn(b), reps=20)
+            _, launches[name] = counted_call(fn, b)
+            prof = profile_calls(lambda: fn(b))
+            set_compute_dtype(None)
+            for k, v in maps["bf16"].items():
+                if k.endswith("_preds") or k.endswith("_preds_single"):
+                    check(v.dtype == torch.float32,
+                          f"bf16 {name} {k} is {v.dtype}")
+                check(bool(torch.isfinite(v.float()).all()),
+                      f"bf16 {name} {k} not finite")
+            a, b16 = maps["float32"]["cls_preds"], maps["bf16"]["cls_preds"]
+            dist = float((b16 - a).abs().mean() / a.abs().mean())
+            check(dist < 0.15, f"bf16 {name}: cls_preds distance {dist:.3f}")
+            out[name] = {"ms_float32": ms["float32"], "ms_bf16": ms["bf16"],
+                         "speedup": ms["float32"] / ms["bf16"],
+                         "cls_preds_mean_rel_dist": dist,
+                         "rotated_iou_launches_bf16": launches[name],
+                         "bf16_profile": {k: prof[k] for k in (
+                             "stages", "device_kernel_ms",
+                             "device_busy_share", "device_kernel_launches",
+                             "top_kernels")}}
+        ap = {}
+        from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
+        from coalign_tpu_torch.data.synthetic import SyntheticScenes
+        from coalign_tpu_torch.inference import evaluate, gt_corners
+        from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
+        scenes = SyntheticScenes(**E2E_SCENES)
+        eb = IntermediateFusionBatcher(**E2E_BATCHER).assemble(
+            [scenes[0], scenes[1]])
+        spec = make_anchor_spec(E2E_ANCHORS, E2E_POSTPROCESS["target_args"])
+        tiny_infer = make_infer_fn(tiny, spec.anchors, E2E_POSTPROCESS)
+        for policy in (None, torch.bfloat16):
+            set_compute_dtype(policy)
+            ap["bf16" if policy else "float32"] = evaluate(
+                tiny_infer, [dict(eb, gt_corners=gt_corners(eb))])
+    finally:
+        set_compute_dtype(None)
+    phase("bf16", **out, train_ap_tiny_flagship=ap, card=card)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -3961,7 +4413,18 @@ def main() -> int:
           late=late_ap, no=no_ap, **tiny)
     phase("noise_sweep", **sweep_check(tiny_flagship, stage1_tiny),
           card=card)
-    del tiny_flagship, stage1_tiny
+
+    # 22-25. the LSS camera family at full width (fault 12's cells, serving,
+    # training), its camera data from disk, and the bf16 compute policy on
+    # the flagship, the LSS request and the tiny flagship's AP
+    phase("lss_cells", **lss_cells_check(), card=card)
+    lss_launches, lss_infer, lss_model, lss_in = lss_check(card)
+    lss_train_launches = lss_train(card)
+    camera_disk_launches = camera_disk_check(card)
+    bf16_launches = bf16_check(card, (lss_infer, lss_model, lss_in),
+                               tiny_flagship)
+    del tiny_flagship, stage1_tiny, lss_infer, lss_model, lss_in
+    torch.cuda.empty_cache()
 
     # 17. their training at full width; the tiny twins' CUDA steps against
     # the CPU
@@ -4035,6 +4498,12 @@ def main() -> int:
             dataset_launches["dairv2x_coalign_request"],
         "launches_per_pixor_request": pixor_launches["request"],
         "launches_per_pixor_train_step": pixor_launches["train_step"],
+        "launches_per_lss_request": lss_launches["request"],
+        "launches_per_lss_single_request": {
+            k: v for k, v in lss_launches.items() if k != "request"},
+        "launches_per_lss_train_step": lss_train_launches,
+        "launches_per_camera_disk_frame": camera_disk_launches,
+        "launches_per_bf16_request": bf16_launches,
         **disk,
         "max_abs_err": main["max_abs_err"],
         "max_abs_diff": main["max_abs_err"],

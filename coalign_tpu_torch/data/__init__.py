@@ -31,10 +31,6 @@ def build_dataset(params: dict, train: bool = True, native: bool = True):
                                 params.get("dataset", "opv2v")).lower()
     if name not in ("opv2v", "v2xset", "dairv2x", "v2xsim"):
         raise KeyError(f"unknown dataset {name!r}")
-    if "camera" in params.get("input_source", ["lidar"]):
-        raise NotImplementedError(
-            "camera batches come with the LSS camera family (ROADMAP item 7)")
-
     max_cav = params["train_params"].get("max_cav", 5)
     root = params["root_dir"] if train else (
         params.get("validate_dir") or params["root_dir"])
@@ -68,6 +64,19 @@ def build_dataset(params: dict, train: bool = True, native: bool = True):
         train=train,
         native=native,
     )
+    if "camera" in params.get("input_source", ["lidar"]):
+        # camera batches (coalign_tpu/data/__init__.py:48-56): the reader's
+        # camera parameters and image paths, images at the model's
+        # final_dim; no world augmentation
+        from coalign_tpu_torch.data.camera_batch import CameraBatcher
+        if hasattr(base, "load_camera"):
+            base.load_camera = True
+        return base, CameraBatcher(
+            max_cav=max_cav,
+            final_dim=params["model"]["args"]["data_aug_conf"]["final_dim"],
+            lidar_range=kw["lidar_range"], comm_range=kw["comm_range"],
+            pos_std=kw["pos_std"], rot_std=kw["rot_std"],
+            laplace=kw["laplace"])
     if train and params.get("data_augment"):
         from coalign_tpu_torch.data.augment import WorldAugmentor
         kw["augmentor"] = WorldAugmentor(params["data_augment"])

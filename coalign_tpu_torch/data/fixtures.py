@@ -4,7 +4,8 @@ The port's copy of coalign_tpu/data/fixtures.py. The reference ships no
 test fixtures; these write miniature but format-faithful trees from
 data/synthetic.SyntheticScenes, so that the on-disk readers are tested
 against a known oracle without the datasets: an OPV2V root
-(``<scenario>/<cav>/<ts>.yaml|.pcd``, data/opv2v.py), a V2X-Sim info
+(``<scenario>/<cav>/<ts>.yaml|.pcd``, and ``<ts>_camera{i}.png`` with
+cameras, data/opv2v.py), a V2X-Sim info
 pickle with ``.bin`` scans (data/v2xsim.py) and a DAIR-V2X-C root with its
 split json (data/dairv2x.py).
 """
@@ -18,23 +19,26 @@ import pickle
 import numpy as np
 import yaml
 
+from coalign_tpu_torch.data.image_io import write_png
 from coalign_tpu_torch.data.pcd_io import write_pcd
 from coalign_tpu_torch.utils.box_utils import boxes_to_corners_3d
 from coalign_tpu_torch.utils.transforms import pose_to_tfm
 
 
 def write_opv2v_fixture(root: str, scenes, frames_per_scenario: int = 4,
-                        rsu_last: bool = False, with_cameras: bool = False):
+                        rsu_last: bool = False, with_cameras: bool = False,
+                        cam_hw=(120, 160)):
     """Materialize ``scenes`` (SyntheticScenes or a list of frames) under
     ``root`` in the OPV2V on-disk layout. Returns the root path.
 
     Every agent sees every object (synthetic scenes have no occlusion), so
     each cav yaml lists all objects, as an OPV2V cav yaml lists the
     vehicles around it. With ``rsu_last`` the last agent of a frame (not
-    the ego) is written as an RSU, under a negative id."""
-    if with_cameras:
-        raise NotImplementedError(
-            "camera fixtures come with the LSS camera family (ROADMAP item 7)")
+    the ego) is written as an RSU, under a negative id. With
+    ``with_cameras`` each agent gets 4 cameras at its pose, 90 degrees apart
+    in yaw (``camera{i}`` blocks in its yaml, focal length the width), and
+    a ``<ts>_camera{i}.png`` of ``cam_hw`` seeded noise each, written by
+    data/image_io.write_png: the JAX package's fixture, pixel for pixel."""
     n = len(scenes)
     n_scen = max(1, n // frames_per_scenario)
     for si in range(n_scen):
@@ -68,11 +72,33 @@ def write_opv2v_fixture(root: str, scenes, frames_per_scenario: int = 4,
                     "ego_speed": 0.0,
                     "vehicles": vehicles,
                 }
+                if with_cameras:
+                    params.update(_write_cameras(cav_dir, ts, agent["pose"],
+                                                 cam_hw, idx * 31 + ai * 7))
                 with open(os.path.join(cav_dir, ts + ".yaml"), "w") as f:
                     yaml.safe_dump(params, f)
                 write_pcd(os.path.join(cav_dir, ts + ".pcd"),
                           agent["points"])
     return root
+
+
+def _write_cameras(cav_dir: str, ts: str, pose, cam_hw, seed: int) -> dict:
+    """Write an agent's 4 camera PNGs; their yaml blocks."""
+    h, w = cam_hw
+    blocks = {}
+    for ci in range(4):
+        cords = [float(v) for v in pose]
+        cords[4] = float(cords[4] + 90.0 * ci)
+        blocks[f"camera{ci}"] = {
+            "cords": cords,
+            "intrinsic": [[w, 0.0, (w - 1) / 2], [0.0, w, (h - 1) / 2],
+                          [0.0, 0.0, 1.0]],
+            "extrinsic": np.eye(4).tolist(),
+        }
+        img = np.random.default_rng(seed + ci).integers(0, 255, (h, w, 3),
+                                                        dtype=np.uint8)
+        write_png(os.path.join(cav_dir, f"{ts}_camera{ci}.png"), img)
+    return blocks
 
 
 def _yaw_to_quat(yaw):

@@ -23,18 +23,27 @@ from coalign_tpu_torch.runtime import resolve_device
 _SENTINEL = object()
 
 
+def _tree_map(fn, batch: dict) -> dict:
+    """``fn`` on every array of a batch, into nested dicts (a camera
+    batch's ``image_inputs``)."""
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in batch.items()}
+
+
 def _copier(device: torch.device):
     """(batch of numpy arrays) -> (batch of tensors on ``device``, the CUDA
     event that marks the end of its copy or None)."""
     if device.type != "cuda":
-        return lambda batch: ({k: torch.as_tensor(np.asarray(v), device=device)
-                               for k, v in batch.items()}, None)
+        return lambda batch: (_tree_map(
+            lambda v: torch.as_tensor(np.asarray(v), device=device),
+            batch), None)
     stream = torch.cuda.Stream(device)
 
     def copy(batch):
         with torch.cuda.stream(stream):
-            out = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                   .to(device, non_blocking=True) for k, v in batch.items()}
+            out = _tree_map(
+                lambda v: torch.from_numpy(np.ascontiguousarray(v))
+                .pin_memory().to(device, non_blocking=True), batch)
             done = torch.cuda.Event()
             done.record(stream)
         return out, done

@@ -1,8 +1,9 @@
 """Synthetic multi-agent driving scenes, the port's copy of
-coalign_tpu/data/synthetic.py ``SyntheticScenes`` (lidar only): known gt
-boxes and lidar point clouds sampled on box surfaces and the ground,
-observed by several agents from different poses. For the same arguments it
-gives the same frames as the JAX package's.
+coalign_tpu/data/synthetic.py ``SyntheticScenes``: known gt boxes and
+lidar point clouds sampled on box surfaces and the ground, observed by
+several agents from different poses; ``SyntheticCameraScenes`` adds each
+agent's rendered camera views. For the same arguments they give the same
+frames as the JAX package's.
 
 Frame structure (ref opv2v_basedataset.py retrieve_base_data):
   {"agents": [{"pose": (6,) world pose in degrees,
@@ -98,3 +99,83 @@ class SyntheticScenes:
 
         return {"agents": agents,
                 "objects": {"boxes": boxes, "ids": ids}}
+
+
+def render_agent_cameras(pose, boxes_world, cam_hw=(128, 176), num_cams=4,
+                         focal=96.0, seed=0):
+    """Pinhole views of the scene's boxes from an agent's camera rig (the
+    JAX package's render_agent_cameras, coalign_tpu/data/synthetic.py:
+    105-168): each gt box a bright rectangle where the OpenCV projection
+    puts its center, sized by 1/depth and shaded by the distance, over
+    dark noise, cameras 90 degrees apart in yaw at the agent's pose.
+
+    Returns (cams, imgs): the OPV2V yaml's camera blocks (``camera{i}``:
+    cords, intrinsic, extrinsic) and a list of (H, W, 3) float32 images in
+    [0, 1]."""
+    from coalign_tpu_torch.data.camera_batch import camera_to_lidar_ext
+
+    h, w = cam_hw
+    rng = np.random.default_rng(seed)
+    intrinsic = np.array([[focal, 0.0, (w - 1) / 2],
+                          [0.0, focal, (h - 1) / 2],
+                          [0.0, 0.0, 1.0]], dtype=np.float32)
+    t_aw = inverse_tfm(pose_to_tfm(np.asarray(pose, np.float64)))
+    centers_agent = project_points(boxes_world[:, :3].astype(np.float64),
+                                   t_aw)
+
+    cams, imgs = {}, []
+    for ci in range(num_cams):
+        cords = [float(v) for v in pose]
+        cords[4] = float(cords[4] + 90.0 * ci)
+        cams[f"camera{ci}"] = {"cords": cords,
+                               "intrinsic": intrinsic.tolist(),
+                               "extrinsic": np.eye(4).tolist()}
+        # T_camera<-agent: the batcher's T_lidar<-camera inverted
+        t_ca = np.linalg.inv(camera_to_lidar_ext(cords, pose).astype(
+            np.float64))
+        p_cam = centers_agent @ t_ca[:3, :3].T + t_ca[:3, 3]
+
+        img = rng.uniform(0.0, 0.08, (h, w, 3)).astype(np.float32)
+        for oi in np.argsort(-p_cam[:, 2]):     # far first, near on top
+            x, y, z = p_cam[oi]
+            if z < 1.0:
+                continue
+            u = focal * x / z + (w - 1) / 2
+            v = focal * y / z + (h - 1) / 2
+            half_u = focal * (0.5 * float(boxes_world[oi, 5])) / z
+            half_v = focal * (0.5 * float(boxes_world[oi, 3])) / z
+            u0, u1 = int(np.floor(u - half_u)), int(np.ceil(u + half_u))
+            v0, v1 = int(np.floor(v - half_v)), int(np.ceil(v + half_v))
+            if u1 < 0 or v1 < 0 or u0 >= w or v0 >= h:
+                continue
+            u0, u1 = max(u0, 0), min(u1, w - 1)
+            v0, v1 = max(v0, 0), min(v1, h - 1)
+            img[v0:v1 + 1, u0:u1 + 1, :] = float(np.clip(1.0 - z / 80.0,
+                                                         0.25, 1.0))
+        imgs.append(img)
+    return cams, imgs
+
+
+class SyntheticCameraScenes(SyntheticScenes):
+    """SyntheticScenes with each agent's rendered camera rig
+    (render_agent_cameras): ``cameras`` and ``camera_arrays``, seeded by
+    seed * 7919 + idx * 31 + agent, as the JAX package's."""
+
+    def __init__(self, *args, cam_hw=(128, 176), num_cams=4, focal=96.0,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.cam_hw = cam_hw
+        self.num_cams = num_cams
+        self.focal = focal
+
+    def __getitem__(self, idx):
+        frame = super().__getitem__(idx)
+        boxes = frame["objects"]["boxes"]
+        for ai, agent in enumerate(frame["agents"]):
+            cams, imgs = render_agent_cameras(
+                agent["pose"], boxes, cam_hw=self.cam_hw,
+                num_cams=self.num_cams, focal=self.focal,
+                seed=self.seed * 7919 + idx * 31 + ai)
+            agent["cameras"] = cams
+            agent["camera_arrays"] = imgs
+        return frame

@@ -49,12 +49,17 @@ _BATCH_DTYPES = {"points": torch.float32, "point_mask": torch.bool,
 
 def to_device(batch: dict, device, float_dtype=torch.float32) -> dict:
     """The batch keys the model reads, as tensors on ``device``; the float
-    ones as ``float_dtype`` (a float64 model's inputs are float64)."""
+    ones as ``float_dtype`` (a float64 model's inputs are float64), the
+    camera batch's nested ``image_inputs`` (all float) too."""
     out = {}
     for key, dtype in _BATCH_DTYPES.items():
         if key in batch:
             dtype = float_dtype if dtype.is_floating_point else dtype
             out[key] = torch.as_tensor(batch[key], dtype=dtype, device=device)
+    if "image_inputs" in batch:
+        out["image_inputs"] = {
+            k: torch.as_tensor(v, dtype=float_dtype, device=device)
+            for k, v in batch["image_inputs"].items()}
     return out
 
 
@@ -93,7 +98,9 @@ def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):
 
     ``batch`` is the JAX package's batch dict (numpy arrays or tensors):
     points (B, L, N, 4), point_mask (B, L, N), agent_mask (B, L),
-    pairwise_t_matrix (B, L, L, 4, 4), transformation_matrix (B, 4, 4).
+    pairwise_t_matrix (B, L, L, 4, 4), transformation_matrix (B, 4, 4);
+    a camera model's ``image_inputs`` (models/camera.py) in place of the
+    points.
     ``anchors`` is the (H, W, A, 7) anchor grid, or a DenseBevSpec for the
     anchor-free PIXOR family (decode_dense_map). Returns tensors on the
     device: corners3d (B, max_num, 8, 3), boxes7 (B, max_num, 7),

@@ -53,7 +53,15 @@ class AttFusion(nn.Module):
         x = warp_agents_to_ego(features, affines[:, 0], agent_mask)
         c = x.shape[2]
         m = agent_mask[:, :, None, None]
-        scores = (x[:, :1] * x).sum(dim=2) / math.sqrt(c)    # (B, L, H, W)
+        if x.dtype == torch.bfloat16:
+            # bfloat16 maps (the compute-dtype policy): the JAX package's
+            # scores are a bfloat16 product (float32 accumulator) divided by
+            # a numpy float, so the attention and its output are float32
+            x = x.float()
+            scores = (x[:, :1] * x).sum(dim=2).bfloat16().float() / \
+                math.sqrt(c)
+        else:
+            scores = (x[:, :1] * x).sum(dim=2) / math.sqrt(c)  # (B, L, H, W)
         scores = scores.masked_fill(~m, float("-inf"))
         att = torch.exp(scores - scores.amax(dim=1, keepdim=True))
         att = torch.where(m, att, 0.0)

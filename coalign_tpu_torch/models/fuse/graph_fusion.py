@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from coalign_tpu_torch.models.layers import (BN_EPS, MaskedBatchNorm2d,
-                                             MaskedSequential, conv_bn_relu)
+                                             MaskedSequential, PolicyConv2d,
+                                             conv_bn_relu)
 from coalign_tpu_torch.ops.warp import warp_affine, warp_agents_to_ego
 
 
@@ -48,7 +49,8 @@ class PixelWeightLayer(nn.Module):
         super().__init__()
         for i, (c_in, c_out) in enumerate(
                 [(channel, 128), (128, 32), (32, 8)], start=1):
-            self.add_module(f"conv1_{i}", nn.Conv2d(c_in, c_out, 1))
+            # ConvBNReLUs in the JAX package: policy convs
+            self.add_module(f"conv1_{i}", PolicyConv2d(c_in, c_out, 1))
             self.add_module(f"bn1_{i}", MaskedBatchNorm2d(c_out, eps=BN_EPS))
         self.conv1_4 = nn.Conv2d(8, 1, 1)
 

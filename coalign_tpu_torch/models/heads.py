@@ -12,30 +12,35 @@ import torch
 from torch import nn
 
 
-def add_detection_heads(model: nn.Module, in_ch: int, args: dict):
+def add_detection_heads(model: nn.Module, in_ch: int, args: dict,
+                        suffix: str = ""):
     """The heads a model's yaml ``args`` ask for: cls and reg always, dir
     with ``dir_args``, the IoU head (``anchor_number`` channels) with
     ``use_iou_head``, the log-variance head (``uncertainty_dim`` x anchors
-    channels) with ``uncertainty_dim``."""
+    channels) with ``uncertainty_dim``; named ``<kind>_head<suffix>`` (the
+    LSS model's single-agent heads are ``*_head_before_fusion``)."""
     a = args["anchor_number"]
-    model.cls_head = nn.Conv2d(in_ch, a, 1)
-    model.reg_head = nn.Conv2d(in_ch, 7 * a, 1)
-    model.dir_head = (nn.Conv2d(in_ch, args["dir_args"].get("num_bins", 2) * a,
-                                1) if "dir_args" in args else None)
-    model.iou_head = (nn.Conv2d(in_ch, a, 1)
-                      if args.get("use_iou_head", False) else None)
-    model.unc_head = (nn.Conv2d(in_ch, args["uncertainty_dim"] * a, 1)
-                      if "uncertainty_dim" in args else None)
+    heads = {
+        "cls": nn.Conv2d(in_ch, a, 1),
+        "reg": nn.Conv2d(in_ch, 7 * a, 1),
+        "dir": (nn.Conv2d(in_ch, args["dir_args"].get("num_bins", 2) * a, 1)
+                if "dir_args" in args else None),
+        "iou": (nn.Conv2d(in_ch, a, 1)
+                if args.get("use_iou_head", False) else None),
+        "unc": (nn.Conv2d(in_ch, args["uncertainty_dim"] * a, 1)
+                if "uncertainty_dim" in args else None)}
+    for kind, head in heads.items():
+        setattr(model, f"{kind}_head{suffix}", head)
 
 
-def detection_heads(model: nn.Module, x: torch.Tensor) -> dict:
-    out = {"cls_preds": model.cls_head(x), "reg_preds": model.reg_head(x)}
-    if model.dir_head is not None:
-        out["dir_preds"] = model.dir_head(x)
-    if model.iou_head is not None:
-        out["iou_preds"] = model.iou_head(x)
-    if model.unc_head is not None:
-        out["unc_preds"] = model.unc_head(x)
+def detection_heads(model: nn.Module, x: torch.Tensor,
+                    suffix: str = "") -> dict:
+    """The ``<kind>_preds`` maps of add_detection_heads' heads."""
+    out = {}
+    for kind in ("cls", "reg", "dir", "iou", "unc"):
+        head = getattr(model, f"{kind}_head{suffix}")
+        if head is not None:
+            out[f"{kind}_preds"] = head(x)
     return out
 
 

@@ -46,8 +46,96 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from coalign_tpu_torch.runtime import lowp_call
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01  # torch convention; the JAX package's 0.99
+
+_COMPUTE_DTYPE = None
+
+
+def set_compute_dtype(dtype):
+    """Set the policy layers' compute dtype: None (their parameters' dtype,
+    the default) or torch.bfloat16."""
+    if dtype not in (None, torch.bfloat16):
+        raise ValueError(f"compute dtype {dtype} is not None or bfloat16")
+    global _COMPUTE_DTYPE
+    _COMPUTE_DTYPE = dtype
+
+
+def compute_dtype():
+    return _COMPUTE_DTYPE
+
+
+def promote(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` in promote(x, like)'s dtype: what a flax layer without
+    ``dtype=`` computes in."""
+    dt = torch.promote_types(x.dtype, like.dtype)
+    return x if x.dtype == dt else x.to(dt)
+
+
+def _policy_call(layer, fn, x):
+    """A policy layer's ``fn(input, weight, bias)``: cast to the compute
+    dtype when one is set, else as flax's dtype=None promotes them."""
+    cd = _COMPUTE_DTYPE
+    if cd is None:
+        return fn(promote(x, layer.weight), layer.weight, layer.bias)
+    y = lowp_call(fn, x.to(cd), layer.weight.to(cd), None)
+    if layer.bias is None:
+        return y
+    # flax adds the bias after the conv or product, in the compute dtype
+    shape = (-1,) + (1,) * (y.dim() - 2) if not isinstance(
+        layer, nn.Linear) else (-1,)
+    return y + layer.bias.to(cd).reshape(shape)
+
+
+class PolicyConv2d(nn.Conv2d):
+    """nn.Conv2d that computes in the compute dtype when one is set."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _policy_call(self, self._conv_forward, x)
+
+
+class PolicyConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d (no output_size) in the compute dtype when one is
+    set."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _policy_call(self, lambda x, w, b: F.conv_transpose2d(
+            x, w, b, self.stride, self.padding, self.output_padding,
+            self.groups, self.dilation), x)
+
+
+class PolicyLinear(nn.Linear):
+    """nn.Linear in the compute dtype when one is set."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _policy_call(self, F.linear, x)
+
+
+_POLICY = (PolicyConv2d, PolicyConvTranspose2d, PolicyLinear)
+_PROMOTED = (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.Linear,
+             nn.LayerNorm)
+
+
+def _promote_input(module, args):
+    x = args[0] if args else None
+    if (isinstance(x, torch.Tensor) and x.is_floating_point()
+            and x.dtype != module.weight.dtype):
+        return (promote(x, module.weight),) + tuple(args[1:])
+    return None
+
+
+def promote_unpinned(model: nn.Module) -> nn.Module:
+    """Give every conv, linear and layer norm of ``model`` that is not a
+    policy layer flax's dtype=None behaviour: an input of a lower float
+    dtype than its weight (bfloat16 from a policy layer) is promoted to the
+    weight's. Inputs of the weight's dtype pass untouched."""
+    for mod in model.modules():
+        if (isinstance(mod, _PROMOTED) and not isinstance(mod, _POLICY)
+                and getattr(mod, "weight", None) is not None):
+            mod.register_forward_pre_hook(_promote_input)
+    return model
 
 
 def _masked_moments(x: torch.Tensor, mask, channel_dim: int):
@@ -78,7 +166,8 @@ class _MaskedNorm:
         batch_stats are traced values too); the buffers take a detached
         copy. ``channel_dim`` overrides the class's."""
         mean, var = _masked_moments(
-            x, mask, self.channel_dim if channel_dim is None else channel_dim)
+            promote(x, self.running_mean), mask,
+            self.channel_dim if channel_dim is None else channel_dim)
         m = self.momentum
         run_mean = (1 - m) * self.running_mean + m * mean.reshape(-1)
         run_var = (1 - m) * self.running_var + m * var.reshape(-1)
@@ -89,11 +178,16 @@ class _MaskedNorm:
         return (mean, var), (run_mean, run_var)
 
     def _normalize(self, x, mean, var, channel_dim=None):
+        """In x's dtype: a bfloat16 input is normalized in bfloat16 by its
+        statistics and affine cast down, op by op, as the JAX
+        MaskedBatchNorm computes (models/layers.py:70-72)."""
         shape = [1] * x.dim()
         shape[self.channel_dim if channel_dim is None else channel_dim] = -1
-        inv = self.weight.reshape(shape) / torch.sqrt(
-            var.reshape(shape) + self.eps)
-        return (x - mean.reshape(shape)) * inv + self.bias.reshape(shape)
+        dt = x.dtype
+        inv = self.weight.reshape(shape).to(dt) / torch.sqrt(
+            var.reshape(shape).to(dt) + self.eps)
+        return ((x - mean.reshape(shape).to(dt)) * inv
+                + self.bias.reshape(shape).to(dt))
 
 
 class MaskedBatchNorm(_MaskedNorm, nn.BatchNorm1d):
@@ -133,6 +227,8 @@ class MaskedBatchNorm2d(_MaskedNorm, nn.BatchNorm2d):
         super().__init__(num_features, eps=eps, momentum=BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        if not self.training and x.dtype != self.running_mean.dtype:
+            return self._normalize(x, self.running_mean, self.running_var)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
@@ -146,16 +242,16 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv1 = PolicyConv2d(inplanes, planes, 3, stride=stride,
+                                  padding=1, bias=False)
         self.bn1 = MaskedBatchNorm2d(planes)
         self.relu = nn.ReLU(inplace=True)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = PolicyConv2d(planes, planes, 3, padding=1, bias=False)
         self.bn2 = MaskedBatchNorm2d(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
-                nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
+                PolicyConv2d(inplanes, planes, 1, stride=stride, bias=False),
                 MaskedBatchNorm2d(planes))
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
@@ -199,8 +295,8 @@ def conv_bn_relu(in_ch: int, out_ch: int, stride: int = 1,
     them. ``bias`` keeps the reference's conv bias before the norm where
     its checkpoints have one (naive_compress.py, when2com_fuse.py); the
     JAX package folds it into the running mean."""
-    return [nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=padding,
-                      bias=bias),
+    return [PolicyConv2d(in_ch, out_ch, 3, stride=stride, padding=padding,
+                         bias=bias),
             MaskedBatchNorm2d(out_ch, eps=BN_EPS), nn.ReLU(inplace=True)]
 
 
@@ -231,10 +327,10 @@ def deblock(in_ch: int, out_ch: int, stride: float) -> MaskedSequential:
     (ref base_bev_backbone_resnet.py:51-77)."""
     if stride >= 1:
         s = int(stride)
-        conv = nn.ConvTranspose2d(in_ch, out_ch, s, stride=s, bias=False)
+        conv = PolicyConvTranspose2d(in_ch, out_ch, s, stride=s, bias=False)
     else:
         s = int(round(1 / stride))
-        conv = nn.Conv2d(in_ch, out_ch, s, stride=s, bias=False)
+        conv = PolicyConv2d(in_ch, out_ch, s, stride=s, bias=False)
     return MaskedSequential(conv, MaskedBatchNorm2d(out_ch, eps=BN_EPS),
                             nn.ReLU(inplace=True))
 

@@ -12,14 +12,16 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from coalign_tpu_torch.models.layers import MaskedBatchNorm
+from coalign_tpu_torch.models.layers import MaskedBatchNorm, PolicyLinear
 from coalign_tpu_torch.ops import pillars as P
 
 
 class PFNLayer(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, use_norm: bool):
         super().__init__()
-        self.linear = nn.Linear(in_ch, out_ch, bias=not use_norm)
+        # computes in the compute dtype when one is set (the JAX
+        # package's Dense(dtype=compute_dtype()), pillar_encoder.py:70)
+        self.linear = PolicyLinear(in_ch, out_ch, bias=not use_norm)
         self.norm = MaskedBatchNorm(out_ch) if use_norm else None
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,

@@ -24,9 +24,10 @@ eps 1e-3 and the JAX package's momentum (models/layers.py). So
 ``backbone_3d.*`` (or ``spconv_block.*``) of a reference checkpoint loads
 strictly.
 
-The JAX package casts the sparse blocks' feature tables to its compute
-dtype when one is set (``compute_dtype()``); the port has no precision
-policy yet (ROADMAP item 3) and runs float32 throughout.
+Under the compute-dtype policy (models/layers.py) a sparse block casts its
+feature table to the compute dtype, as the JAX package's do
+(models/voxel_backbone.py:203-210): the product runs in that dtype with a
+float32 accumulator (ops/sparse_conv.py).
 """
 
 from __future__ import annotations
@@ -39,8 +40,9 @@ from torch import nn
 
 from coalign_tpu_torch.models.layers import (BN_EPS, BN_MOMENTUM,
                                              MaskedBatchNorm2d,
-                                             MaskedSequential, _MaskedNorm,
-                                             conv_bn_relu)
+                                             MaskedSequential, PolicyConv2d,
+                                             _MaskedNorm, compute_dtype,
+                                             conv_bn_relu, promote)
 from coalign_tpu_torch.ops import sparse_conv as S
 
 DENSE_TAIL_BUDGET_BYTES = 1 << 30
@@ -59,6 +61,9 @@ class VoxelNorm(_MaskedNorm, nn.BatchNorm1d):
 
     def forward(self, x: torch.Tensor, mask=None,
                 channel_dim: int = -1) -> torch.Tensor:
+        if not self.training and x.dtype != self.running_mean.dtype:
+            return self._normalize(x, self.running_mean, self.running_var,
+                                   channel_dim)
         if not self.training:
             if channel_dim == 1:
                 return F.batch_norm(x, self.running_mean, self.running_var,
@@ -109,7 +114,9 @@ class SparseConv3DBNReLU(nn.Sequential):
         """x (F, Cin, D, H, W) -> (F, Cout, D', H', W'); ``mask``
         (F, D', H', W') weights the norm's training statistics."""
         w = self[0].weight.permute(4, 3, 0, 1, 2)
-        y = F.conv3d(x, w, stride=self.stride, padding=self.padding)
+        # no policy conv in the JAX package: a bfloat16 grid is promoted
+        y = F.conv3d(promote(x, w), w, stride=self.stride,
+                     padding=self.padding)
         return F.relu(self[1](y, mask, channel_dim=1))
 
     def sparse(self, grid: S.SparseGrid, out_set: S.SparseGrid | None = None,
@@ -117,6 +124,8 @@ class SparseConv3DBNReLU(nn.Sequential):
         """A subm conv on ``grid``'s active set (``out_set`` None) or a
         strided one onto ``out_set``; the norm's statistics over the output's
         active rows."""
+        if compute_dtype() is not None:
+            grid = grid._replace(feats=grid.feats.to(compute_dtype()))
         if out_set is None:
             out = S.subm_conv(grid, self[0].weight, rulebook=rulebook)
         else:
@@ -332,7 +341,7 @@ class SSFA(nn.Module):
 
 
 def _conv1x1_bn_relu(cin: int, cout: int) -> list:
-    return [nn.Conv2d(cin, cout, 1, bias=False),
+    return [PolicyConv2d(cin, cout, 1, bias=False),
             MaskedBatchNorm2d(cout, eps=BN_EPS), nn.ReLU(inplace=True)]
 
 

@@ -1,13 +1,15 @@
 """The model registry of the port (build_model) and its PointPillars
 models: the CoAlign flagship and the single-agent detectors. The SECOND
 family's models are in models/second_family.py, the PIXOR family's in
-models/pixor.py.
+models/pixor.py, the LSS camera family's in models/camera.py.
 
 Ports of coalign_tpu/models/zoo.py:
   * PointPillarBaselineMultiscale (:164-213; ref
     point_pillar_baseline_multiscale.py:17, aliased as the CoAlign model by
     point_pillar_coalign.py:9): PointPillars with per-scale intermediate
-    fusion, optionally after a NaiveCompressor of the pillar canvas;
+    fusion, optionally after a NaiveCompressor of the pillar canvas; with
+    ``supervise_single`` its ``single_heads`` give each agent's ``*_single``
+    maps (B*L, ...) from the unfused scales;
   * PointPillarBaseline (:127-161; ref point_pillar_baseline.py:17): one
     fusion after the whole backbone, the shrink and the optional
     NaiveCompressor, with any fusion of models/fuse/fusion.py (F-Cooper's
@@ -54,11 +56,13 @@ from torch import nn
 from torch.profiler import record_function
 
 from coalign_tpu_torch.models.backbones import backbone_from_config
+from coalign_tpu_torch.models.camera import MODELS as LSS_FAMILY
 from coalign_tpu_torch.models.fuse.fusion import build_fusion
 from coalign_tpu_torch.models.heads import (DetectionHeads,
                                             add_detection_heads,
                                             detection_heads)
-from coalign_tpu_torch.models.layers import DownsampleConv, NaiveCompressor
+from coalign_tpu_torch.models.layers import (DownsampleConv, NaiveCompressor,
+                                             compute_dtype, promote_unpinned)
 from coalign_tpu_torch.models.pillar_encoder import PillarEncoder
 from coalign_tpu_torch.models.pixor import PIXOR_FAMILY
 from coalign_tpu_torch.models.second_family import MODELS as SECOND_FAMILY
@@ -102,6 +106,10 @@ class _PillarBase(nn.Module):
         with record_function("stage/pillar_encoder"):
             bev = self.pillar_vfe(batch["points"].reshape(b * l, n, -1),
                                   batch["point_mask"].reshape(b * l, n))
+        if compute_dtype() is not None:
+            # the collaborative models' canvas in the compute dtype
+            # (coalign_tpu/models/zoo.py:118-119)
+            bev = bev.to(compute_dtype())
         affine = normalize_pairwise_tfm(batch["pairwise_t_matrix"],
                                         self.spec.ny, self.spec.nx,
                                         self.args["voxel_size"][0])
@@ -119,8 +127,6 @@ class PointPillarBaselineMultiscale(_PillarBase):
     point_pillar_baseline_multiscale.py:93-138)."""
 
     def __init__(self, args: dict):
-        if args.get("supervise_single"):
-            raise NotImplementedError("'supervise_single' is not ported yet")
         super().__init__(args)
         bb = args["base_bev_backbone"]
         # the reference compresses the 64-channel pillar canvas
@@ -130,6 +136,10 @@ class PointPillarBaselineMultiscale(_PillarBase):
         self.fusion_net = nn.ModuleList(
             [build_fusion(args["fusion_method"], args, feat_dims[i])
              for i in range(len(bb["layer_nums"]))])
+        # supervise_single: each agent's unfused scales decoded, shrunk and
+        # through heads of their own (coalign_tpu/models/zoo.py:184-208)
+        self.single_heads = (DetectionHeads(self.out_dim, args)
+                             if args.get("supervise_single") else None)
 
     def forward(self, batch: dict) -> dict:
         # the "stage/..." ranges name the stages in a torch.profiler trace
@@ -146,7 +156,15 @@ class PointPillarBaselineMultiscale(_PillarBase):
                           batch["agent_mask"])
                      for fuse, feat in zip(self.fusion_net, feats)]
         with record_function("stage/decode_shrink_heads"):
-            return self._shrink_heads(self.backbone.decode(fused))
+            out = self._shrink_heads(self.backbone.decode(fused))
+        if self.single_heads is not None:
+            with record_function("stage/single_heads"):
+                single = self.backbone.decode(feats, bn_mask)
+                if self.shrink_conv is not None:
+                    single = self.shrink_conv(single)
+                out.update({k + "_single": v
+                            for k, v in self.single_heads(single).items()})
+        return out
 
 
 class PointPillarBaseline(_PillarBase):
@@ -395,15 +413,13 @@ _MODELS = {
     "point_pillar_mash": PointPillarMash,
     **SECOND_FAMILY,
     **PIXOR_FAMILY,
+    **LSS_FAMILY,
 }
 
 # models of the JAX package that the port does not have yet, each with the
 # ROADMAP item that brings it
 _UNPORTED = {"fpvrcnn": "the two-stage models (ROADMAP item 8)",
-             "fvoxelrcnn": "the two-stage models (ROADMAP item 8)",
-             "lift_splat_shoot": "the LSS camera family (ROADMAP item 7)",
-             "lift_splat_shoot_intermediate":
-                 "the LSS camera family (ROADMAP item 7)"}
+             "fvoxelrcnn": "the two-stage models (ROADMAP item 8)"}
 
 
 def _lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -461,4 +477,4 @@ def build_model(config: dict, device=None, seed: int = 0) -> nn.Module:
     dev = resolve_device(device)
     model = _MODELS[name](config["args"])
     init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(dev).eval()
+    return promote_unpinned(model).to(dev).eval()

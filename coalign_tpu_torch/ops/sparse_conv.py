@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from coalign_tpu_torch.ops.voxels import VoxelSpec, voxel_ids
+from coalign_tpu_torch.runtime import lowp_call
 
 
 class SparseGrid(NamedTuple):
@@ -227,8 +228,10 @@ def _apply_conv(grid: SparseGrid, weight: torch.Tensor, rulebook,
     zero at unused output rows. ``weight`` is (kz, ky, kx, Cin, Cout)."""
     taps = gather_neighbors(grid, rulebook)
     f, mo, k, c = taps.shape
-    out = taps.reshape(f * mo, k * c) @ weight.reshape(k * c, -1).to(
-        taps.dtype)
+    # in the table's dtype (bfloat16 under the compute-dtype policy, a
+    # float32 accumulator)
+    out = lowp_call(torch.matmul, taps.reshape(f * mo, k * c),
+                    weight.reshape(k * c, -1).to(taps.dtype))
     return out.reshape(f, mo, -1) * out_valid[..., None].to(out.dtype)
 
 

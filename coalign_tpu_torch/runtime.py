@@ -34,3 +34,17 @@ def configure_cuda():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
+
+
+def lowp_call(fn, *args):
+    """``fn`` (a conv or a product) of tensors, in their dtype. On the CPU a
+    bfloat16 call computes its bfloat16 operands in float64 and rounds the
+    result once to bfloat16: the JAX package's XLA convolutions and products
+    and cuDNN's (on the card) accumulate bfloat16 in float32 and round once,
+    where oneDNN's bfloat16 kernels on the CPU round otherwise; float64
+    leaves only XLA's float32 summation order between the two packages."""
+    x = args[0]
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return fn(*(None if a is None else a.double() for a in args)).to(
+            torch.bfloat16)
+    return fn(*args)

@@ -53,7 +53,6 @@ from coalign_tpu_torch.train import (build_optimizer, inference_checkpoint,
 _REFUSED_FLAGS = {
     "save_vis": "visualization/ (ROADMAP item 9)",
     "profile": "utils/profiling.py's device trace (ROADMAP item 9)",
-    "bf16": "the compute-dtype policy (ROADMAP item 3)",
 }
 
 
@@ -342,6 +341,15 @@ def cmd_config_generate(opt):
     return out
 
 
+def _apply_bf16(opt):
+    """``--bf16``: the bfloat16 compute policy for the run (models/layers.
+    set_compute_dtype, as coalign_tpu/tools/run.py:424-432 sets it);
+    parameters, batch-norm statistics and geometry stay float32."""
+    if opt.bf16:
+        from coalign_tpu_torch.models.layers import set_compute_dtype
+        set_compute_dtype(torch.bfloat16)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -368,7 +376,9 @@ def main(argv=None):
         s.add_argument("--profile", default=None,
                        help="not ported yet (ROADMAP item 9)")
         s.add_argument("--bf16", action="store_true",
-                       help="not ported yet (ROADMAP item 3)")
+                       help="bfloat16 compute policy for the convs and "
+                            "linears (ref train.py --half; parameters stay "
+                            "float32)")
     opt = p.parse_args(argv)
     if opt.cmd == "export":
         raise NotImplementedError(
@@ -377,6 +387,7 @@ def main(argv=None):
         if getattr(opt, flag):
             raise NotImplementedError(f"--{flag} waits for {what}")
     opt.device = resolve_device(opt.device)
+    _apply_bf16(opt)
     return {"train": cmd_train, "inference": cmd_inference,
             "precalc": cmd_precalc,
             "config_generate": cmd_config_generate}[opt.cmd](opt)

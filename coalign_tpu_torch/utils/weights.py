@@ -22,8 +22,9 @@ model's ``fusion_nets_{i}`` and ``fusion_net.{i}``. It also takes the SECOND
 family's variables (the inverse of ckpt_import.py:708-880:
 ``_SECOND_3D_SLOTS``, ``_conv3d_weight``'s spconv 1.x layout, which the
 port keeps, ``_map_ssfa`` and the CIA-SSD head names; VoxelNet's VFE,
-middle convs and 2D backbone), and the PIXOR family's (the inverse of
-ckpt_import.py:652 ``_map_pixor_family``).
+middle convs and 2D backbone), the PIXOR family's (the inverse of
+ckpt_import.py:652 ``_map_pixor_family``) and the LSS camera family's
+(the inverse of ckpt_import.py:545 ``_map_lss_family``).
 
 Where the reference has weights the JAX package has not, the state dict
 gets zeros, which compute what the JAX package computes: the bias of a
@@ -446,6 +447,66 @@ def _pixor_family_state(flat: dict) -> dict:
     return out
 
 
+_UP_SLOTS = {"conv1": "0", "bn1": "1", "conv2": "3", "bn2": "4"}
+_BOTTLENECK_PARTS = {"down_conv": "downsample.0", "down_bn": "downsample.1"}
+_LSS_MODULES = {"bevencode/up2_conv": "bevencode.up2.1",
+                "bevencode/up2_bn": "bevencode.up2.2",
+                "bevencode/up2_out": "bevencode.up2.4",
+                "bevencode/down1": "bevencode.down_layer.0",
+                "bevencode/down2": "bevencode.down_layer.2",
+                "camencode/trunk/conv_stem": "camencode.trunk._conv_stem",
+                "camencode/trunk/bn0": "camencode.trunk._bn0"}
+
+
+def _lss_module(mod: str) -> str:
+    """A flax module path of the LSS family -> the port's module name (the
+    inverse of ckpt_import.py:465-650)."""
+    if mod in _LSS_MODULES:
+        return _LSS_MODULES[mod]
+    if m := re.fullmatch(r"(\w+)/(up\d|up_layer\d)/(\w+)", mod):
+        return f"{m[1]}.{m[2]}.conv.{_UP_SLOTS[m[3]]}"
+    if m := re.fullmatch(r"camencode/trunk/blocks_(\d+)/(\w+)", mod):
+        return f"camencode.trunk._blocks.{m[1]}._{m[2]}"
+    if m := re.fullmatch(r"(\w+)/trunk/(conv1|bn1)", mod):
+        return f"{m[1]}.{m[2]}"
+    if m := re.fullmatch(r"camencode/trunk/layer(\d)_(\d+)/(\w+)", mod):
+        return (f"camencode.layer{m[1]}.{m[2]}."
+                f"{_BOTTLENECK_PARTS.get(m[3], m[3])}")
+    if m := re.fullmatch(r"bevencode/trunk/layer(\d)_(\d+)/(\w+)", mod):
+        return f"bevencode.layer{m[1]}.{m[2]}.{_BLOCK_PARTS[m[3]]}"
+    if m := re.fullmatch(r"camencode/(image_head|depth_head)", mod):
+        return f"camencode.{m[1]}"
+    if m := re.fullmatch(r"heads(_single)?/(cls|reg|dir)_head", mod):
+        return f"{m[2]}_head" + ("_before_fusion" if m[1] else "")
+    raise KeyError(f"no port parameter for LSS variable {mod!r}")
+
+
+def _lss_family_state(flat: dict) -> dict:
+    """The LSS camera family's flax variables (flat) -> port arrays: the
+    inverse of ckpt_import.py:545 ``_map_lss_family``. The collaborative
+    model's single-scale fusion ``bevencode/fuse`` is the port's
+    ``bevencode.fuse_module``; the multiscale fusions have no
+    parameters."""
+    fuse = {"fusion/" + p[len("bevencode/fuse/"):]: v for p, v in flat.items()
+            if p.startswith("bevencode/fuse/")}
+    nb = _v2xvit_blocks(fuse).get("fusion")
+    out = {}
+    for path, value in flat.items():
+        if path.startswith("bevencode/fuse/"):
+            out.update({"bevencode.fuse_module." + k: v
+                        for k, v in _fusion_entries(
+                            path[len("bevencode/fuse/"):], value, nb)})
+            continue
+        if path.startswith("shrink/"):
+            key, kind = _torch_key(path, None)
+            out[key] = _conv(value) if kind == "conv" else value
+            continue
+        mod, leaf = path.rsplit("/", 1)
+        out[f"{_lss_module(mod)}.{_LEAF_FIELDS[leaf]}"] = (
+            _conv(value) if leaf == "kernel" else value)
+    return out
+
+
 def from_jax_params(variables: dict, layer_nums=None) -> dict:
     """coalign_tpu PointPillars variables (nested numpy dicts) -> port
     state dict, including each batch norm's ``num_batches_tracked``.
@@ -462,6 +523,8 @@ def from_jax_params(variables: dict, layer_nums=None) -> dict:
         arrays = _second_family_state(flat, layer_nums).items()
     elif any(p.startswith("backbone/block2_0/") for p in flat):
         arrays = _pixor_family_state(flat).items()
+    elif any(p.startswith("camencode/") for p in flat):
+        arrays = _lss_family_state(flat).items()
     else:
         v2xvit_blocks = _v2xvit_blocks(flat)
         arrays = [kv for path, value in flat.items()
@@ -479,8 +542,14 @@ def load_pth(model: torch.nn.Module, path: str) -> torch.nn.Module:
     """Load a reference checkpoint into ``model`` with every key matched.
     A model's ``STATE_DICT_ALIASES`` ({checkpoint prefix: the model's})
     renames a block the reference names two ways (the SECOND family's 3D
-    backbone, ``backbone_3d`` or ``spconv_block``)."""
+    backbone, ``backbone_3d`` or ``spconv_block``); its ``STATE_DICT_DEAD``
+    prefixes name reference modules that no forward reads, whose keys are
+    dropped (the LSS encoders' efficientnet classifier and ResNet-101's
+    up1/up2, as coalign_tpu/utils/ckpt_import.py:521-590 drops them)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    dead = tuple(getattr(model, "STATE_DICT_DEAD", ()))
+    if dead:
+        sd = {k: v for k, v in sd.items() if not k.startswith(dead)}
     for alias, name in getattr(model, "STATE_DICT_ALIASES", {}).items():
         sd = {name + k[len(alias):] if k.startswith(alias) else k: v
               for k, v in sd.items()}

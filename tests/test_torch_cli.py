@@ -14,6 +14,8 @@ tests/test_pose_graph_eval.py::test_pose_graph_eval_cli
     on the same CPU), while the same checkpoint in a reference run
     directory, whose config has no pad_parity, gets pad_parity true and
     other maps;
+  * lss_coalign_fusion.yaml trains on a camera tree and its run directory
+    infers, also under --bf16;
   * the refused subcommand, flags and datasets raise and name their
     ROADMAP item; without --device and without a GPU every command raises;
 """
@@ -215,8 +217,7 @@ def test_refused_commands_raise(trained, tmp_path, monkeypatch):
                        (["inference", "--model_dir", model_dir,
                          "--save_vis"], "item 9"),
                        (["inference", "--model_dir", model_dir,
-                         "--profile", "trace"], "item 9"),
-                       (["train", "-y", cfg, "--bf16"], "item 3")):
+                         "--profile", "trace"], "item 9")):
         with pytest.raises(NotImplementedError, match=item):
             run.main(argv + CPU)
     # a directory of the JAX package's orbax checkpoints, and none at all
@@ -228,16 +229,15 @@ def test_refused_commands_raise(trained, tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="no net_epoch"):
         run.main(["inference", "--model_dir", str(tmp_path / "orbax"), *CPU])
     # the real precalc.yaml's SECOND stage-1 builds, the family ported: none
-    # of its dataset directories exists here, so it writes nothing; LSS and
-    # the two-stage models are refused
+    # of its dataset directories exists here, so it writes nothing; the
+    # two-stage models are refused
     hypes = os.path.join(os.path.dirname(__file__), "..", "coalign_tpu",
                          "hypes_yaml")
     assert run.main(["precalc", "-y", os.path.join(hypes, "opv2v",
                                                    "precalc.yaml"), *CPU]) == []
-    for rel, item in (("opv2v/lss_selfatt.yaml", "item 7"),
-                      ("dairv2x/fpvrcnn.yaml", "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            run.main(["train", "-y", os.path.join(hypes, rel), *CPU])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        run.main(["train", "-y", os.path.join(hypes, "dairv2x/fpvrcnn.yaml"),
+                  *CPU])
     # without a GPU the commands need --device cpu
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for main, argv in ((run.main, ["config_generate", "-y", cfg]),
@@ -246,3 +246,36 @@ def test_refused_commands_raise(trained, tmp_path, monkeypatch):
                        (pose_graph_eval.main, ["--model_dir", model_dir])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_lss_run_dir_infers(bf16, tmp_path):
+    """lss_coalign_fusion.yaml (cut as tests/test_torch_dataset_yamls.py
+    cuts it) trains on a camera fixture tree, then ``run inference`` of its
+    run directory reloads the checkpoint and evaluates a frame from disk;
+    with ``--bf16`` both commands run under the bfloat16 policy, which the
+    test resets."""
+    from coalign_tpu_torch.models.layers import set_compute_dtype
+    from test_torch_dataset_yamls import cut_lss_yaml
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes as Scenes
+    scenes = Scenes(num_frames=2, num_agents=2, num_objects=3,
+                    lidar_range=[-8.0, -8.0, -3.0, 8.0, 8.0, 1.0],
+                    points_per_object=16, ground_points=32, seed=4)
+    tree = write_opv2v_fixture(str(tmp_path / "cams"), scenes,
+                               frames_per_scenario=2, with_cameras=True,
+                               cam_hw=(64, 96))
+    path, _ = cut_lss_yaml(tmp_path, "lss_coalign_fusion", tree)
+    flag = ["--bf16"] if bf16 else []
+    model_dir = str(tmp_path / "run")
+    try:
+        _, res = run.main(["train", "-y", path, "--model_dir", model_dir,
+                           "--epochs", "1", "--eval_frames", "1", *flag,
+                           *CPU])
+        res2 = run.main(["inference", "--model_dir", model_dir,
+                         "--eval_frames", "1", *flag, *CPU])
+    finally:
+        set_compute_dtype(None)
+    assert res2["frames"] == 1 and np.isfinite(res2["ap30"])
+    if not bf16:
+        assert res2 == res
+    assert os.path.exists(os.path.join(model_dir, "eval_intermediate.yaml"))

@@ -9,7 +9,8 @@ JAX package's.
   * frame_comm_bytes and summarize_bandwidth give the JAX package's numbers
     for every fusion mode, and for the intermediate fusion of every yaml
     whose model the port has (the port's class of each, built without
-    weights, against the JAX class), exactly (the same float64 sums).
+    weights, against the JAX class), exactly (the same float64 sums); nan
+    in both for the LSS camera models.
 """
 
 import glob
@@ -43,8 +44,8 @@ def test_the_zoo_has_every_yaml():
     assert len(ALL_YAMLS) == 72
     # 37 until the port took Where2comm, MASH and robust V2VNet's 7 yamls,
     # 44 until it took the SECOND family's 15, 59 until it took PIXOR's
-    # pixor_intermediate.yaml
-    assert len(PORTED_YAMLS) == 60
+    # pixor_intermediate.yaml, 60 until it took the six LSS camera yamls
+    assert len(PORTED_YAMLS) == 66
 
 
 @pytest.mark.parametrize("path", ALL_YAMLS, ids=_yaml_id)
@@ -116,6 +117,11 @@ def test_intermediate_bandwidth_matches_jax(path):
                                    comm_rate=comm_rate)
         want = JBW.frame_comm_bytes("intermediate", batch, model=jax_model,
                                     comm_rate=comm_rate)
+        if "grid_conf" in cfg["args"]:
+            # the LSS camera models: both packages count no lidar feature
+            # map for them (no lidar_range), nan
+            assert math.isnan(got) and math.isnan(want)
+            continue
         assert got == want and got > 0
         assert TBW.summarize_bandwidth(got, 2) == \
             JBW.summarize_bandwidth(want, 2)

@@ -535,3 +535,51 @@ def test_far_long_boxes_keep_their_iou_with_themselves(cuda):
     got = torch.diagonal(K.rotated_iou(c, c))
     torch.cuda.synchronize()
     torch.testing.assert_close(got, torch.ones_like(got), atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_lss_cells_on_cuda_match_cpu(cuda):
+    # fault 12: the splat's cells divide by a tensor, so that the
+    # full-width LSS geometry (4.6M frustum points) and 1M points on and
+    # one ulp beside cell boundaries land in the same cells on the card as
+    # on the CPU (chip_smoke's lss_cells phase)
+    from chip_smoke import lss_cells_check
+    assert lss_cells_check()["equal"]
+
+
+@pytest.mark.cuda
+def test_lss_on_cuda_matches_cpu(cuda):
+    # the tiny LSS (chip_smoke.LSS_TINY, att_ms, supervise_single) on
+    # rendered views: float32 eval maps within 1e-4 of each map's largest;
+    # under bfloat16 float32 heads, finite, within tests/test_bf16.py's
+    # mean relative distance (0.15) of the CPU's bfloat16 maps; a train
+    # step within train_parity's bounds
+    from chip_smoke import (LSS_TINY, LSS_TINY_ANCHORS, LSS_TINY_LOSS,
+                            _lss_tiny_batch, train_parity)
+    from coalign_tpu_torch.inference import to_device
+    from coalign_tpu_torch.models.layers import set_compute_dtype
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.runtime import configure_cuda
+    configure_cuda()
+    batch = _lss_tiny_batch()
+    models = {dev: build_model(LSS_TINY, device=dev, seed=0)
+              for dev in ("cpu", "cuda")}
+    try:
+        for policy in (None, torch.bfloat16):
+            set_compute_dtype(policy)
+            with torch.no_grad():
+                want = models["cpu"](to_device(batch, "cpu"))
+                got = models["cuda"](to_device(batch, cuda))
+            for key, w in want.items():
+                g = got[key].cpu()
+                assert g.dtype == w.dtype == torch.float32, key
+                assert torch.isfinite(g).all(), key
+                if policy is None:
+                    err = (g - w).abs().max()
+                    assert err <= 1e-4 * w.abs().max(), (key, float(err))
+                else:
+                    dist = (g - w).abs().mean() / w.abs().mean()
+                    assert dist < 0.15, (key, float(dist))
+    finally:
+        set_compute_dtype(None)
+    train_parity(batch, LSS_TINY, LSS_TINY_LOSS, anchor_args=LSS_TINY_ANCHORS)

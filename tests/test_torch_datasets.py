@@ -265,12 +265,7 @@ def test_unported_datasets_and_inputs_raise(jax_tree, scenes, tmp_path):
                                    "fpvrcnn.yaml"))
         with pytest.raises(NotImplementedError, match="item 8"):
             build_model(y["model"], device="cpu")
-    cam = dict(_params(jax_tree, "intermediate"), input_source=["camera"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_dataset(cam)
     with pytest.raises(KeyError, match="unknown dataset"):
         build_dataset(_params(jax_tree, "intermediate", "kitti"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        write_opv2v_fixture(str(tmp_path / "c"), scenes, with_cameras=True)
     with pytest.raises(FileNotFoundError):
         OPV2VBaseDataset(str(tmp_path))

@@ -243,3 +243,44 @@ def test_smoke_configurations_equal_the_golden_tests():
     assert S.FULL_ANCHORS == F.ANCHOR_ARGS
     assert S.TINY_ARGS == E.TINY_ARGS
     assert S.TINY_ANCHORS == E.ANCHOR_ARGS
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_supervise_single_heads_match_jax(train, monkeypatch):
+    """The multiscale model's ``supervise_single`` heads (coalign_tpu/
+    models/zoo.py:184-208): each agent's unfused scales decoded, shrunk and
+    through ``single_heads``, the ``*_single`` maps on (B*L, ...), beside
+    the fused maps. Eval in float32 within 1e-4; train mode (batch
+    statistics, the fused decode's norms moving before the single one's)
+    in float64 within 1e-8 of each map's largest (test_torch_second's
+    float64 helpers)."""
+    from test_torch_second import _jax_train_float64, _port_train
+    io = np.load(os.path.join(GOLDEN, "coalign_multiscale_io.npz"))
+    batch = _two_agent_batch(io)
+    cfg = {**FLAGSHIP, "args": {**TINY_ARGS, "supervise_single": True}}
+    jmodel = jax_build_model(cfg)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    variables = _randomize_norms(jax.tree_util.tree_map(
+        np.asarray, jit_init(jmodel, jax.random.PRNGKey(2), jbatch,
+                             train=False)), np.random.default_rng(2))
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(from_jax_params(
+        variables, TINY_ARGS["base_bev_backbone"]["layer_nums"]), strict=True)
+    inputs = {k: torch.as_tensor(v) for k, v in batch.items()}
+    if train:
+        want, _ = _jax_train_float64(monkeypatch, lambda v, b: jmodel.apply(
+            v, b, train=True, mutable=["batch_stats"]), variables, batch)
+        _, got, _ = _port_train(model, inputs)
+        tol = 1e-8
+    else:
+        want = jax.jit(lambda v, b: jmodel.apply(v, b, train=False))(
+            variables, jbatch)
+        with torch.no_grad():
+            got = model(inputs)
+        tol = 1e-4
+    assert set(got) == set(want) and "cls_preds_single" in got
+    for key, w in want.items():
+        w = np.asarray(w).transpose(0, 3, 1, 2)
+        assert got[key].shape[0] == (2 if key.endswith("_single") else 1)
+        err = float(np.abs(got[key].numpy() - w).max())
+        assert err <= tol * float(np.abs(w).max()), (key, err)

@@ -74,6 +74,34 @@ def test_every_module_imports_with_jax_blocked():
     assert int(proc.stdout.split()[0]) >= 20
 
 
+def test_no_module_imports_pil_or_h5py():
+    """The camera feed reads PNGs and resizes them itself (data/image_io.py):
+    no port module nor chip_smoke.py imports Pillow or h5py, which the
+    card's machine lacks, and every module imports with them blocked."""
+    pattern = re.compile(r"^\s*(?:import|from)\s+(?:PIL|h5py)(?:[.\s,]|$)",
+                         re.M)
+    offenders = []
+    for path in _port_sources():
+        with open(path) as f:
+            offenders += [os.path.relpath(path, REPO)
+                          for _ in pattern.finditer(f.read())]
+    assert not offenders, offenders
+    code = textwrap.dedent("""
+        import pkgutil, sys
+        for blocked in ("PIL", "h5py", "jax", "flax"):
+            sys.modules[blocked] = None
+        import coalign_tpu_torch, chip_smoke
+        for m in pkgutil.walk_packages(coalign_tpu_torch.__path__,
+                                       "coalign_tpu_torch."):
+            __import__(m.name)
+        from coalign_tpu_torch.data import camera_batch, image_io
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for core in ("point_pillar_coalign", "point_pillar_baseline",
@@ -111,7 +139,7 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
 
 def test_build_model_rejects_what_is_not_ported():
     # the JAX package's models the port has not yet name their ROADMAP item
-    for name, item in (("fpvrcnn", "item 8"), ("lift_splat_shoot", "item 7")):
+    for name, item in (("fpvrcnn", "item 8"), ("fvoxelrcnn", "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             build_model({"core_method": name, "args": {}}, device="cpu")
     with pytest.raises(KeyError, match="not ported"):
