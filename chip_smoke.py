@@ -17,7 +17,8 @@ Phases, each printing one JSON line with its elapsed seconds:
              reference's own recording: head maps and the final box set;
              the main path's kernel launches are counted here;
   5. serve   20 timed requests of the full-width infer fn (CUDA events);
-     profile torch.profiler over 5 more: device and host time per stage
+     profile torch.profiler over PROFILE_REQUESTS (3) more: device and
+             host time per stage
              of the forward and post-processing, the device's busy share;
   6. ap      AP30/50/70 of the tiny flagship on the 10 recorded frames;
   7. train   the yaml's flagship trained from scratch at full width: B=4
@@ -44,7 +45,7 @@ Phases, each printing one JSON line with its elapsed seconds:
              noise: stage-1, pose graph, flagship, post-processing; 2 IoU
              launches a request, ms beside the flagship alone, the pose
              errors before and after;
-     coalign_profile   torch.profiler over 5 requests, with the
+     coalign_profile   torch.profiler over 3 requests, with the
              stage/stage1 and stage/pose_graph ranges beside the flagship's;
  11. late    late fusion of the recording's 5 agents (B=1) through
              make_late_infer_fn with stage1's detector: CUDA against the
@@ -173,12 +174,32 @@ Phases, each printing one JSON line with its elapsed seconds:
              set_compute_dtype(torch.bfloat16): ms, cls_preds' mean
              relative distance (< 0.15), float32 heads; the trained tiny
              flagship's AP in both (reported).
+ 26. fpvrcnn, fvoxelrcnn   opv2v/fpvrcnn.yaml and fvoxelrcnn.yaml at full
+             width (41 x 800 x 2816 at 0.1 m, the 70,000-voxel eval cap,
+             4,096 keypoints and 32 stage-1 boxes an agent, 32 RoIs, 6 x 6
+             RoI grids) on second's 5 agents of ~30,000 points, seeded
+             weights (the stage-1 scores spread and their threshold set,
+             fpv_stage1_threshold):
+             CUDA against the CPU (stage-1 maps, RoIs, refined boxes and
+             confidences within 2e-3 of each map's largest, the masks
+             equal, the box set with at least 10 boxes), 2 IoU launches a
+             request, peak memory, 20 timed requests and a profile (over 2
+             FPV-RCNN requests, 5 FVoxelRCNN ones) with the
+             stage/voxelize, backbone_3d, bev_trunk, stage1_decode,
+             matcher, fps, ball_query, roi_head and post_process ranges,
+             and the plain matcher's ms at (1, 160);
+     fpvrcnn_train   fpvrcnn.yaml's B=4 step (1 warm-up, 3 timed), 1 IoU
+             launch a step (the stage-1 NMS; the JAX package's step trains
+             stage 1 alone); fpvrcnn_parity, a tiny FPV-RCNN's step on CUDA
+             against the CPU (train_parity's bounds).
 Then one JSON line describing each kernel (with its launches on each
-path above), timed at six shapes (the main
+path above), timed at eight shapes (the main
 path's NMS input; that input stacked 8 times, a B=8 batch's one launch; 8
 frames of densely packed boxes; the stage-1 NMS input over 5 agent frames;
 the DAIR CoAlign request's stage-1 NMS input over 2 agent frames; the late
-request's joint NMS input) beside its bound and the time of one
+request's joint NMS input; FPV-RCNN's stage-1 (5 x 256) and refined
+(1 x 32) NMS inputs; CUDA events around launches queued behind a sleep
+kernel, queued_ms) beside its bound and the time of one
 launch that writes the same output (out.zero_()), the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Any failed check
 raises, so the exit code is not 0. make_infer_fn runs float32 in full
@@ -365,6 +386,10 @@ YAML_UNC_LOSS = {"core_method": "point_pillar_uncertainty_loss",
                                               "xy_loss_type": "l2",
                                               "angle_weight": 1.0}}}
 LATE_REQUESTS = 20
+# calls in a profile (profile_calls): the script's profiles took ~0.8 ms of
+# host time for each kernel launch they recorded, and with 5 calls a
+# profile the script ran 1,156 s of its 1,200 on a slow host
+PROFILE_REQUESTS = 3
 
 # The tiny late-fusion training of tests/test_late_inference.py (ARGS, its
 # anchors, POST, its loss, scenes and batcher), which imports JAX, with an
@@ -746,13 +771,42 @@ def event_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, name: str | None = None):
+def queued_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: CUDA events around ``reps`` calls
+    queued behind a sleep kernel, so that the card runs them back to back
+    and the host's launch overhead stays out. The sleep is made 4x longer
+    until the start event is still pending once every call is queued; a
+    call that waits on the card never lets that happen, and fails the
+    script. Unlike device_ms this does not read the profiler's kernel
+    records, which late in the script's process lost the IoU kernel's
+    launches three times in a row, or put it at a fifth of its time."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000                      # ~10 ms at the H100's clock
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    check(False, "the calls could not be queued behind a sleep kernel")
+
+
+def device_ms(fn, reps: int):
     """Device time per call of ``fn``, from the profiler's kernel records
-    (CUPTI): the time of the kernels whose name contains ``name`` (all of
-    them when None), summed over ``reps`` calls and divided by ``reps``.
-    Unlike CUDA events around a loop of calls, this leaves out the host's
-    launch overhead. None when three profiles in a row recorded no such
-    kernel (now and then one records no device activity at all)."""
+    (CUPTI): the time of its kernels summed over ``reps`` calls and divided
+    by ``reps``. Unlike CUDA events around a loop of calls, this leaves out
+    the host's launch overhead and the gaps between kernels. None when
+    three profiles in a row recorded no device activity (now and then one
+    records none). Late in the script's process the records can lose
+    launches, so the IoU kernel's shapes are timed with queued_ms."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -763,8 +817,7 @@ def device_ms(fn, reps: int, name: str | None = None):
                 fn()
             torch.cuda.synchronize()
         total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and (name is None or name in e.key))
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
         if total_us > 0:
             return total_us / reps / 1e3
     return None
@@ -825,11 +878,11 @@ def iou_ops(c1: torch.Tensor, c2: torch.Tensor) -> float:
 
 
 def time_shape(c: torch.Tensor, pairs: torch.Tensor | None = None) -> dict:
-    """The kernel on ``c`` against itself: its device time, its bound, the
-    share of pairs its cull clears, the device time of one launch that
-    writes the same output (``out.zero_()``), its difference from the plain
-    version (over ``pairs``, a (B, N, N) mask, when given) and the plain
-    version's device time."""
+    """The kernel on ``c`` against itself: its device time (queued_ms), its
+    bound, the share of pairs its cull clears, the device time of one
+    launch that writes the same output (``out.zero_()``), its difference
+    from the plain version (over ``pairs``, a (B, N, N) mask, when given)
+    and the plain version's device time."""
     from coalign_tpu_torch.kernels import rotated_iou as K
     from coalign_tpu_torch.utils.iou import rotated_iou_plain, separated_pairs
     got = K.rotated_iou(c, c)
@@ -840,24 +893,22 @@ def time_shape(c: torch.Tensor, pairs: torch.Tensor | None = None) -> dict:
     ops = iou_ops(c, c)
     ops_ms = ops / PEAK_F32_OPS * 1e3
     bytes_ms = (c.numel() * 4 * 2 + got.numel() * 4) / PEAK_BYTES * 1e3
-    kernel_ms = device_ms(lambda: K.rotated_iou(c, c), 100,
-                          "rotated_iou_kernel")
+    kernel_ms = queued_ms(lambda: K.rotated_iou(c, c), 100)
     out = torch.empty_like(got)
-    floor_ms = device_ms(out.zero_, 100)
-    check(kernel_ms is not None and floor_ms is not None,
-          "the profiler recorded no device time")
+    floor_ms = queued_ms(out.zero_, 100)
     bound = max(ops_ms, bytes_ms)
     check(bound <= kernel_ms, f"kernel on {list(c.shape)} faster than its "
-          f"bound: {kernel_ms:.3e} < {bound:.3e} ms")
+          f"bound: {kernel_ms:.3e} < {bound:.3e} ms (write floor "
+          f"{floor_ms:.3e})")
     return {"shape": list(c.shape), "pairs": got.numel(), "max_abs_err": err,
             "cleared_share": float(separated_pairs(c, c).double().mean()),
             "ops": ops, "kernel_ms": kernel_ms, "bound_ms": bound,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "share": bound / kernel_ms, "write_floor_ms": floor_ms,
-            "plain_ms": device_ms(lambda: rotated_iou_plain(c, c), 10)}
+            "plain_ms": queued_ms(lambda: rotated_iou_plain(c, c), 1)}
 
 
-def profile_calls(fn, reps: int = 5) -> dict:
+def profile_calls(fn, reps: int = PROFILE_REQUESTS) -> dict:
     """Where the time of one call of ``fn`` goes: torch.profiler over
     ``reps`` calls after one untimed call. Per stage (the "stage/..."
     ranges of the model's forward, of make_infer_fn and of
@@ -1531,12 +1582,14 @@ def same_box_sets(got: dict, want: dict) -> tuple:
     return counts, worst_iou, worst_ds
 
 
-def timed_requests(fn, batch) -> dict:
+def timed_requests(fn, batch, profile_reps: int = PROFILE_REQUESTS) -> dict:
     """LATE_REQUESTS requests of ``fn`` on ``batch`` with CUDA events, and
-    profile_calls' device ms, host ms, busy share and launches a request."""
+    profile_calls' device ms, host ms, busy share and launches a request
+    over ``profile_reps`` requests."""
     ms = event_ms(lambda: fn(batch), reps=LATE_REQUESTS)
-    prof = profile_calls(lambda: fn(batch))
+    prof = profile_calls(lambda: fn(batch), profile_reps)
     return {"requests": LATE_REQUESTS, "ms_per_frame": ms,
+            "profiled_requests": profile_reps,
             "frames_per_s": 1000.0 / ms,
             "profile": {k: prof[k] for k in (
                 "stages", "call_wall_ms", "device_kernel_ms",
@@ -3189,8 +3242,10 @@ def second_train(card) -> dict:
     schedule on B = 4 synthetic frames (second_intermediate: 4 frames of 5
     agents, 20 agent frames; SECOND.yaml, late: one agent a frame), the
     train cap max_voxel_train 32,000; SECOND_TRAIN_STEPS warm-up and timed
-    steps (CUDA events): ms a step, the peak memory of the warm-up (model,
-    optimizer state, cuDNN's autotuning) and of the timed steps, the
+    steps (CUDA events; both on cuDNN's heuristic algorithms,
+    NO_AUTOTUNE_TRAIN): ms a step, the peak memory of the
+    warm-up (model, optimizer state, any cuDNN autotuning) and of the timed
+    steps, the
     voxels and overflow a frame, the first and last loss terms, every term
     finite, no IoU launch.
     A step that does not fit on the card is recorded, not cut. Returns the
@@ -3219,6 +3274,9 @@ def second_train(card) -> dict:
         voxels = second_voxels(model, host)
         warm, timed = SECOND_TRAIN_STEPS
         peaks = []                 # the warm-up's (cuDNN autotunes there)
+        # after make_train_step, whose configure_cuda turns it on
+        autotune = name not in NO_AUTOTUNE_TRAIN
+        torch.backends.cudnn.benchmark = autotune
         try:
             def run():
                 terms = [step(batch) for _ in range(warm)]
@@ -3234,12 +3292,14 @@ def second_train(card) -> dict:
 
             (terms, start, end), n_iou = counted_call(run)
         except torch.cuda.OutOfMemoryError as e:
+            torch.backends.cudnn.benchmark = True
             phase("second_train", config=name, batch=TRAIN_BATCH,
                   fits=False, error=str(e)[:300],
                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                   **voxels, card=card)
             del model, opt, step, batch
             continue
+        torch.backends.cudnn.benchmark = True
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         check(all(np.isfinite(float(v)) for t in terms for v in t.values()),
               f"{name}: a loss term is not finite")
@@ -3247,6 +3307,7 @@ def second_train(card) -> dict:
         ms = start.elapsed_time(end) / timed
         launches[name] = n_iou
         phase("second_train", config=name, batch=TRAIN_BATCH, fits=True,
+              cudnn_autotune=autotune,
               agent_frames=int(np.asarray(host["agent_mask"]).sum()),
               timed_steps=timed, ms_per_step=ms,
               frames_per_s=TRAIN_BATCH * 1000.0 / ms,
@@ -3280,8 +3341,17 @@ BASELINE_TRAIN_STEPS = (1, 3)             # warm-up, timed
 # train lines timed on cuDNN's heuristic algorithms, without autotuning:
 # V2VNet's float32 ConvGRU autotunes for ~130 s in its first step, which
 # the script's 1,200 s cannot spare beside the LSS phases (its step takes
-# ~2.7 s on the heuristics' algorithms, ~2.2 s autotuned)
-NO_AUTOTUNE_TRAIN = ("pointpillar_v2vnet",)
+# ~2.7 s on the heuristics' algorithms, ~2.2 s autotuned); second_
+# intermediate's (~100 s of its line) and the LSS model's (~70 s) neither,
+# beside the two-stage phases (the script ran 1,249 s with them tuned);
+# nor robust V2VNet's (~30 s), When2comm's (~35 s) and SECOND's (~20 s),
+# whose autotuning took 85 of the script's 934 s on one host, which ran
+# 1,156 s on a slower one
+NO_AUTOTUNE_TRAIN = ("pointpillar_v2vnet", "second_intermediate",
+                     "lss_coalign_fusion", "pointpillar_v2vnet_robust_stage0",
+                     "pointpillar_v2vnet_robust_stage1",
+                     "pointpillar_v2vnet_robust_stage2",
+                     "pointpillar_when2comm", "SECOND")
 # train_parity's tiny twins of the baselines with a learned fusion: the tiny
 # flagship's trunk (E2E_ARGS: 64 channels fused at 32 x 32) with each fusion
 BASELINE_TWIN_BASE = {k: v for k, v in E2E_ARGS.items()
@@ -4021,7 +4091,8 @@ def lss_train(card) -> int:
     """The lss_train phase: lss_coalign_fusion.yaml's B = 4 train step at
     full width from scratch (its loss, Adam with weight decay, schedule;
     the camera encoder frozen, as the yaml's model does), LSS_TRAIN_STEPS
-    warm-up and timed steps (CUDA events): ms, peak memory, the first and
+    warm-up and timed steps (CUDA events, on cuDNN's heuristic algorithms,
+    NO_AUTOTUNE_TRAIN): ms, peak memory, the first and
     last loss terms, no IoU launch; then lss_train_parity, the tiny LSS's
     step on CUDA against the CPU (train_parity's bounds). Returns the IoU
     launches of a step."""
@@ -4041,6 +4112,9 @@ def lss_train(card) -> int:
                                             post["target_args"]), opt, sched)
     batch = lss_batch(frames=TRAIN_BATCH)
     warm, timed = LSS_TRAIN_STEPS
+    # after make_train_step, whose configure_cuda turns it on
+    autotune = LSS_YAML not in NO_AUTOTUNE_TRAIN
+    torch.backends.cudnn.benchmark = autotune
 
     def run():
         terms = [step(batch) for _ in range(warm)]
@@ -4051,13 +4125,16 @@ def lss_train(card) -> int:
         end.record()
         return terms, start, end
 
-    (terms, start, end), n_iou = counted_call(run)
+    try:
+        (terms, start, end), n_iou = counted_call(run)
+    finally:
+        torch.backends.cudnn.benchmark = True
     ms = start.elapsed_time(end) / timed
     check(all(np.isfinite(float(v)) for t in terms for v in t.values()),
           "lss_train: a loss term is not finite")
     check(n_iou == 0, f"lss_train: {n_iou} IoU launches in a train step")
     phase("lss_train", config=LSS_YAML, batch=TRAIN_BATCH, agents=5,
-          timed_steps=timed, ms_per_step=ms,
+          cudnn_autotune=autotune, timed_steps=timed, ms_per_step=ms,
           frames_per_s=TRAIN_BATCH * 1000.0 / ms,
           peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
           first_step={k: float(v) for k, v in terms[0].items()},
@@ -4204,6 +4281,343 @@ def bf16_check(card, lss: tuple, tiny) -> dict:
         set_compute_dtype(None)
     phase("bf16", **out, train_ap_tiny_flagship=ap, card=card)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The two-stage models: FPV-RCNN and FVoxelRCNN.
+
+FPV_YAMLS = ("fpvrcnn", "fvoxelrcnn")
+FPV_MAP_BOUND = 2e-3                      # of each map's largest magnitude
+FPV_MIN_BOXES = 10
+FPV_TRAIN_STEPS = (1, 3)                  # warm-up, timed
+# requests in each model's profile: an FPV-RCNN request launches ~32,600
+# kernels (FPS's 4,095 steps), and torch.profiler took 131 s to record and
+# read 5 of them, which the script's 1,200 s cannot spare (1,153 s with 5,
+# 1,156 s with 2 on a slow host)
+FPV_PROFILE_REQUESTS = {"fpvrcnn": 1, "fvoxelrcnn": PROFILE_REQUESTS}
+FPV_STAGE1_PREFILTER = 256                # models/fpvrcnn.py's top-K
+# stage-1 candidates over the 5 agent frames, at least
+FPV_STAGE1_CANDIDATES = 300
+# a stage-1 threshold's least distance, in logits, to every logit, and
+# the least gap at a frame's top-K cut: ~50x the devices' largest
+# difference of the spread logits (~4e-6 of a map's largest, ~10)
+FPV_LOGIT_GAP = 2e-3
+# the tiny FPV-RCNN of fpvrcnn_parity: second_parity's SECOND-SSFA trunk
+# with tests/test_fpvrcnn.py's keypoint stage 2. Its seeded trunk's logits
+# are ~1e-6, every score 0.5 within rounding, so stage 1 keeps no box at a
+# threshold of 0.99 (the order of tied scores is the devices' rounding;
+# spreading them made the step's focal loss ~1e7 and its gradients
+# ill-conditioned): the keypoints and their norms train, the RoI grids run
+# on empty masks; the fpvrcnn phase holds the RoI path at full width
+FPV_TINY = {"core_method": "fpvrcnn", "args": {
+    **SECOND_TINY_ARGS, "anchor_args": SECOND_TINY_ANCHORS,
+    "stage1_postprocess": {"score_threshold": 0.99, "nms_thresh": 0.15,
+                           "max_boxes": 8},
+    "max_rois": 8, "roi_hidden": 32,
+    "vsa": {"enlarge_selection_boxes": True, "num_keypoints": 64,
+            "num_out_features": 16,
+            "sa_layer": {"raw_points": {"mlps": [[8, 8], [8, 8]],
+                                        "pool_radius": [0.4, 0.8],
+                                        "n_sample": [8, 8]}}},
+    "roi_head": {"roi_grid_pool": {"grid_size": 4,
+                                   "mlps": [[16, 16], [16, 16]],
+                                   "pool_radius": [0.8, 1.6],
+                                   "n_sample": [8, 8]}}}}
+FPV_TINY_LOSS = {"core_method": "fpvrcnn_loss",
+                 "args": {**E2E_LOSS, "stage2": {"stage": 2}}}
+
+
+def fpv_stage1_threshold(models: dict, batch: dict) -> dict:
+    """Spread the seeded models' stage-1 scores (a seeded trunk's logits
+    are ~1e-5 apart, and every score ties at 0.5 within float32): an
+    affine map of each anchor's logits, alike on both devices, that puts
+    its empty cells' logit (the most frequent) at -5 and, of every real
+    agent frame's 256th largest (the stage-1 top-K), the largest at 0
+    (score 0.5). A frame's logits can be ten times another's (a frame of
+    fewer points), so spread_cls_scores' one rank over all frames squeezed
+    that frame's top towards score 1.
+    Then set in both models the lowest stage-1 score threshold whose logit
+    lies more than FPV_LOGIT_GAP from every logit of the card's and at
+    which every real agent frame either has fewer candidates than the
+    top-K or a gap of FPV_LOGIT_GAP between its 256th and 257th logit (the
+    top-K's cut is then the same on both devices): the most candidates, so
+    that the NMS keeps boxes on many objects (an object's ~24 anchors
+    overlap, and the NMS keeps one of them; 160 candidates at the widest
+    score gap left 3 to 6 boxes). Returns the logits' scale and shifts,
+    the threshold and its logit margin, and the candidates a frame (the
+    top-K's at most)."""
+    from coalign_tpu_torch.inference import to_device
+    real = torch.as_tensor(np.asarray(batch["agent_mask"])).reshape(-1)
+    frames, k = int(real.sum()), FPV_STAGE1_PREFILTER
+
+    def logits_of():                                    # (F, H*W, A)
+        with torch.no_grad():
+            cls = models["cuda"](to_device(batch, "cuda"))["cls_preds_single"]
+        return cls.permute(0, 2, 3, 1).flatten(1, 2).cpu()[real]
+
+    logits = logits_of()
+    empty = torch.mode(logits.flatten(0, 1), dim=0).values       # (A,)
+    pivot = float(torch.topk((logits - empty).flatten(1), k,
+                             dim=1).values[:, -1].max())
+    scale = 5.0 / max(pivot, 1e-30)
+    shift = -5.0 - scale * empty
+    for model in models.values():
+        conv = model.cls_head
+        with torch.no_grad():
+            conv.weight.mul_(scale)
+            conv.bias.mul_(scale).add_(shift.to(conv.bias.device))
+    logits = logits_of().flatten(1)
+    top = torch.topk(logits, k + 1, dim=1).values
+    cut_ok = top[:, k - 1] - top[:, k] > FPV_LOGIT_GAP           # (F,)
+    per_frame = torch.sort(logits, dim=1).values
+    values = torch.unique(logits)                          # ascending
+    mids = (values[:-1] + values[1:]) / 2
+    gaps = (values[1:] - values[:-1]) / 2
+    counts = logits.shape[1] - torch.searchsorted(
+        per_frame, mids[None].expand(frames, -1).contiguous(), right=True)
+    ok = (((counts < k) | cut_ok[:, None]).all(0) & (gaps > FPV_LOGIT_GAP))
+    check(bool(ok.any()), "no separated stage-1 score threshold")
+    best = int(torch.nonzero(ok)[0])
+    kept = torch.clamp(counts[:, best], max=k)
+    check(int(kept.sum()) >= FPV_STAGE1_CANDIDATES,
+          f"stage-1 candidates {kept.tolist()}")
+    threshold = float(torch.sigmoid(mids[best]))
+    post = models["cuda"].args["stage1_postprocess"]
+    for model in models.values():
+        model.args["stage1_postprocess"] = {**post,
+                                            "score_threshold": threshold}
+    return {"cls_scale_shift": [scale, shift.tolist()],
+            "stage1_score_threshold": threshold,
+            "stage1_threshold_logit_margin": float(gaps[best]),
+            "stage1_candidates_per_frame": kept.tolist()}
+
+
+def fpv_parity(name: str, batch: dict) -> tuple:
+    """The yaml ``name``'s model at full width, seeded (seed 0), on CUDA
+    and on the CPU (fpv_stage1_threshold's cls head and stage-1
+    threshold)
+    through make_infer_fn on ``batch``: the stage-1 maps, ``rois``,
+    ``boxes_refined`` and ``roi_cls`` within FPV_MAP_BOUND of each map's
+    largest, ``roi_mask`` and the stage-1 validity equal, the final box sets
+    at match_box_sets' bounds (fpvrcnn_check holds at least FPV_MIN_BOXES
+    of them, after printing the line). Returns (the fields, the CUDA infer
+    fn, its model)."""
+    from coalign_tpu_torch.inference import make_infer_fn
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.tools.run import postprocess_cfg
+    y = second_yaml(name)
+    models = {dev: build_model(y["model"], device=dev, seed=0)
+              for dev in ("cuda", "cpu")}
+    stage1 = fpv_stage1_threshold(models, batch)
+    post = postprocess_cfg(y)
+    anchors = generate_anchor_box(post["anchor_args"])
+    infer, ref = (make_infer_fn(models[dev], anchors, post, device=dev)
+                  for dev in ("cuda", "cpu"))
+    outs = {"cuda": {}, "cpu": {}}
+    hooks = [models[dev].register_forward_hook(
+        lambda mod, inputs, out, d=dev: outs[d].update(out))
+        for dev in outs]
+    got = infer(batch)
+    t = time.perf_counter()
+    want = ref(batch)
+    cpu_s = time.perf_counter() - t
+    for hook in hooks:
+        hook.remove()
+    for key in ("stage1_valid", "roi_mask"):
+        check(torch.equal(outs["cuda"][key].cpu(), outs["cpu"][key]),
+              f"{name} {key}: CUDA and the CPU differ")
+    keys = [k for k in outs["cpu"] if k.endswith("_single")] + [
+        "stage1_boxes", "rois", "boxes_refined", "roi_cls"]
+    errs = _map_errors({k: outs["cuda"][k] for k in keys},
+                       {k: outs["cpu"][k] for k in keys})
+    for key, e in errs.items():
+        check(e["rel_err"] <= FPV_MAP_BOUND, f"{name} {key}: CUDA vs CPU {e}")
+    counts, worst_iou, worst_ds = same_box_sets(got, want)
+    out = outs["cuda"]
+    fields = {"config": name, "core_method": y["model"]["core_method"],
+              "grid": [models["cuda"].spec.nz, models["cuda"].spec.ny,
+                       models["cuda"].spec.nx],
+              "agents": int(np.asarray(batch["agent_mask"]).sum()),
+              "points_per_agent": np.asarray(batch["point_mask"]).sum(
+                  -1)[np.asarray(batch["agent_mask"])].tolist(),
+              "voxel_cap": models["cuda"].voxel_cap(),
+              **stage1,
+              "stage1_boxes": int(out["stage1_valid"].sum()),
+              "rois": int(out["roi_mask"].sum()), "map_err": errs,
+              "cpu_request_s": cpu_s, "boxes": counts,
+              "min_matched_iou": worst_iou, "max_score_diff": worst_ds}
+    del models["cpu"], ref
+    return fields, infer, models["cuda"]
+
+
+def fpv_request(card, name: str, batch: dict) -> tuple:
+    """fpv_parity, then one counted request (2 IoU launches: the stage-1
+    NMS of the 5 agent frames, the refined NMS), its peak memory, 20 timed
+    requests and a profile over FPV_PROFILE_REQUESTS of them
+    (timed_requests). Returns (the fields, the
+    launches, the NMS inputs of the counted request, the CUDA model)."""
+    fields, infer, model = fpv_parity(name, batch)
+    torch.cuda.reset_peak_memory_stats()
+    captured, restore = _capture_iou_inputs()
+    try:
+        _, launches = counted_call(infer, batch)
+    finally:
+        restore()
+    check(launches == 2, f"{launches} IoU launches in a {name} request")
+    fields.update(rotated_iou_launches=launches,
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  **timed_requests(infer, batch, FPV_PROFILE_REQUESTS[name]),
+                  card=card)
+    return fields, launches, captured, model
+
+
+def matcher_ms(model, batch: dict) -> dict:
+    """The plain matcher at the request's shape: the stage-1 boxes (1, L *
+    32, 7) of ``batch`` through boxes_iou3d_matrix (the 'ref' path's
+    intersection areas, which the kernel does not return) and the whole
+    match_and_fuse, device ms (profiler) and call ms (CUDA events)."""
+    from coalign_tpu_torch.inference import to_device
+    from coalign_tpu_torch.models.matcher import (boxes_iou3d_matrix,
+                                                  match_and_fuse)
+    with torch.no_grad():
+        out = model(to_device(batch, "cuda"))
+    boxes, scores, valid = (out[k] for k in ("stage1_boxes",
+                                             "stage1_scores",
+                                             "stage1_valid"))
+    args = model.args
+
+    def fuse():
+        return match_and_fuse(boxes, scores, valid,
+                              args.get("matcher_iou", 0.1),
+                              args.get("max_rois", 32),
+                              gt_range=args["lidar_range"])
+    return {"shape": list(boxes.shape),
+            "iou3d_device_ms": device_ms(lambda: boxes_iou3d_matrix(boxes),
+                                         10),
+            "iou3d_call_ms": event_ms(lambda: boxes_iou3d_matrix(boxes), 20),
+            "match_and_fuse_device_ms": device_ms(fuse, 5),
+            "match_and_fuse_call_ms": event_ms(fuse, 10)}
+
+
+def fpvrcnn_check(card) -> tuple:
+    """The fpvrcnn and fvoxelrcnn phases: opv2v/fpvrcnn.yaml at full width
+    (41 x 800 x 2816 at 0.1 m, the 70,000-voxel eval cap, 4,096 keypoints
+    and 32 stage-1 boxes an agent, 32 RoIs, 6 x 6 RoI grids) on 5
+    synthetic agents of ~30,000 points (second_batch), fpv_request, with
+    the matcher's ms (matcher_ms); then fvoxelrcnn.yaml on the same batch.
+    Returns ({name: IoU launches a request}, the FPV-RCNN request's NMS
+    inputs: the stage-1 (5, 256) and the refined (1, 32))."""
+    from coalign_tpu_torch.runtime import configure_cuda
+    configure_cuda()
+    batch = second_batch("fpvrcnn")
+    launches, shapes = {}, None
+    for name in FPV_YAMLS:
+        fields, launches[name], captured, model = fpv_request(card, name,
+                                                              batch)
+        if name == "fpvrcnn":
+            shapes = captured
+            fields["matcher"] = matcher_ms(model, batch)
+        phase(name, **fields)
+        check(fields["boxes"][0] >= FPV_MIN_BOXES,
+              f"{name}: {fields['boxes'][0]} boxes")
+        del model
+        torch.cuda.empty_cache()
+    check([list(c.shape[:2]) for c in shapes] == [[5, 256], [1, 32]],
+          f"NMS inputs {[list(c.shape) for c in shapes]}")
+    return launches, shapes
+
+
+def fpvrcnn_train(card) -> int:
+    """The fpvrcnn_train phase: fpvrcnn.yaml's model from scratch (seed 0)
+    at full width with its loss (fpvrcnn_loss: stage 1 on the per-agent
+    labels; its labels carry no gt boxes, so stage 2 adds no term, as in
+    the JAX package), AdamW and schedule on B = 4 synthetic frames of 5
+    agents, the train cap max_voxel_train 32,000, on cuDNN's heuristic
+    algorithms (no autotuning); FPV_TRAIN_STEPS warm-up and timed steps
+    (CUDA events): ms a step, the peak memory of the warm-up and of the
+    timed steps, the first
+    and last loss terms, every term finite, one IoU launch a step (the
+    stage-1 NMS over the 20 agent frames); then fpvrcnn_parity, the tiny
+    FPV-RCNN's step (FPV_TINY) on CUDA against the CPU at train_parity's
+    bounds. Returns the IoU launches a train step."""
+    from coalign_tpu_torch.data.prefetch import prefetch
+    from coalign_tpu_torch.loss import build_loss
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
+    from coalign_tpu_torch.train import build_optimizer, make_train_step
+    y = second_yaml("fpvrcnn")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(y["model"], seed=0)
+    opt, sched = build_optimizer(model.parameters(), y["optimizer"],
+                                 y.get("lr_scheduler"))
+    post = y["postprocess"]
+    step = make_train_step(model, build_loss(y["loss"]),
+                           make_anchor_spec(post["anchor_args"],
+                                            post["target_args"]),
+                           opt, sched)
+    host = second_batch("fpvrcnn", TRAIN_BATCH, train=True)
+    (batch,) = list(prefetch(iter([host])))
+    warm, timed = FPV_TRAIN_STEPS
+    # after make_train_step, whose configure_cuda turns autotuning on: the
+    # 20-frame trunk's shapes are this line's alone (the fpvrcnn phase's 5
+    # frames share SECOND's), and autotuning them costs more than the line
+    torch.backends.cudnn.benchmark = False
+    peaks = []
+
+    def run():
+        terms = [step(batch) for _ in range(warm)]
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        terms += [step(batch) for _ in range(timed)]
+        end.record()
+        return terms, start, end
+
+    try:
+        (terms, start, end), n_iou = counted_call(run)
+    finally:
+        torch.backends.cudnn.benchmark = True
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(np.isfinite(float(v)) for t in terms for v in t.values()),
+          "fpvrcnn: a loss term is not finite")
+    per_step = n_iou / (warm + timed)
+    check(per_step == 1, f"fpvrcnn: {per_step} IoU launches a train step")
+    ms = start.elapsed_time(end) / timed
+    phase("fpvrcnn_train", config="fpvrcnn", batch=TRAIN_BATCH,
+          agent_frames=int(np.asarray(host["agent_mask"]).sum()),
+          voxel_cap=model.voxel_cap(), cudnn_autotune=False,
+          timed_steps=timed, ms_per_step=ms,
+          frames_per_s=TRAIN_BATCH * 1000.0 / ms,
+          warmup_peak_mem_gib=peaks[0], peak_mem_gib=peak,
+          first_step={k: float(v) for k, v in terms[0].items()},
+          last_step={k: float(v) for k, v in terms[-1].items()},
+          rotated_iou_launches_per_step=per_step, card=card)
+    del model, opt, step, batch, terms
+    torch.cuda.empty_cache()
+
+    phase("fpvrcnn_parity", **train_parity(
+        _tiny_parity_batch(), FPV_TINY, FPV_TINY_LOSS,
+        anchor_args=SECOND_TINY_ANCHORS))
+    return per_step
+
+
+def fpv_shapes(captured: list) -> dict:
+    """time_shape of the FPV-RCNN request's two NMS inputs, the stage-1
+    (5 agent frames x 256) and the refined (1 x 32), held over the pairs of
+    boxes of nonzero area (a masked RoI is a zero box, whose IoUs are
+    rounding noise, as late's dropped slots)."""
+    from coalign_tpu_torch.utils.iou import polygon_area
+    out = {}
+    for name, c in zip(("fpv_stage1", "fpv_refined"), captured):
+        real = polygon_area(c) > 1e-6
+        out[name] = time_shape(c, real[:, :, None] & real[:, None, :])
+        out[name]["boxes_of_nonzero_area"] = int(real.sum())
+    return out
 
 
 def main() -> int:
@@ -4442,6 +4856,12 @@ def main() -> int:
     second_train_launches = second_train(card)
     phase("second_parity", **second_step_parity())
 
+    # 26. the two-stage models on the SECOND trunk (after the SECOND
+    # phases, whose cuDNN autotuning of the trunk's shapes they share):
+    # serving FPV-RCNN and FVoxelRCNN, training FPV-RCNN
+    fpv_launches, fpv_nms_inputs = fpvrcnn_check(card)
+    fpv_train_launches = fpvrcnn_train(card)
+
     # 20-21. DAIR-V2X and V2X-Sim from disk, CoAlign on DAIR; PIXOR
     dataset_launches, dair_nms_input = datasets_check(card)
     pixor_launches = pixor_check(card)
@@ -4465,6 +4885,7 @@ def main() -> int:
     # candidate boxes (late_check)
     timed["late"] = time_shape(late_nms_input, late_candidates[:, :, None]
                                & late_candidates[:, None, :])
+    timed.update(fpv_shapes(fpv_nms_inputs))
     # per call with CUDA events (host launch overhead included)
     kernel_call_ms = event_ms(lambda: K.rotated_iou(c, c), reps=200)
     plain_call_ms = event_ms(lambda: rotated_iou_plain(c, c), reps=20)
@@ -4504,13 +4925,16 @@ def main() -> int:
         "launches_per_lss_train_step": lss_train_launches,
         "launches_per_camera_disk_frame": camera_disk_launches,
         "launches_per_bf16_request": bf16_launches,
+        "launches_per_fpvrcnn_request": fpv_launches["fpvrcnn"],
+        "launches_per_fvoxelrcnn_request": fpv_launches["fvoxelrcnn"],
+        "launches_per_fpvrcnn_train_step": fpv_train_launches,
         **disk,
         "max_abs_err": main["max_abs_err"],
         "max_abs_diff": main["max_abs_err"],
         "ms": main["kernel_ms"],
         "kernel_ms": main["kernel_ms"],
         "plain_ms": main["plain_ms"],
-        "ms_source": "profiler",
+        "ms_source": "cuda events around launches queued behind a sleep",
         "call_ms": kernel_call_ms,
         "plain_call_ms": plain_call_ms,
         "bound_ms": main["bound_ms"],

@@ -20,7 +20,8 @@ import torch
 from torch.profiler import record_function
 
 from coalign_tpu_torch.data.prefetch import prefetch
-from coalign_tpu_torch.postprocess.decode import post_process
+from coalign_tpu_torch.postprocess.decode import (post_process,
+                                                  post_process_refined)
 from coalign_tpu_torch.postprocess.dense_bev import (DenseBevSpec,
                                                      decode_dense_map)
 from coalign_tpu_torch.runtime import configure_cuda, resolve_device
@@ -104,7 +105,10 @@ def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):
     ``anchors`` is the (H, W, A, 7) anchor grid, or a DenseBevSpec for the
     anchor-free PIXOR family (decode_dense_map). Returns tensors on the
     device: corners3d (B, max_num, 8, 3), boxes7 (B, max_num, 7),
-    scores (B, max_num), mask (B, max_num), and the model's ``comm_rate``
+    scores (B, max_num), mask (B, max_num); for the two-stage models
+    (FPV-RCNN, FVoxelRCNN) the R refined RoIs of each frame instead
+    (decode.post_process_refined: the config's score and NMS thresholds,
+    no max_num cap); and the model's ``comm_rate``
     (a 0-dim tensor) where it gives one (Where2comm; coalign_tpu/
     inference.py:111-112). On CUDA it sets the
     process-wide full-float32 and cuDNN-autotuning policy
@@ -119,6 +123,17 @@ def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):
     def infer(batch: dict) -> dict:
         b = to_device(batch, dev)
         out = model(b)
+        if "cls_preds" not in out and "boxes_refined" in out:
+            # the two-stage models emit RoI-refined boxes, not anchor maps
+            # (coalign_tpu/inference.py:83-97; ref
+            # fpvrcnn_postprocessor.py:21-246)
+            with record_function("stage/post_process"):
+                return post_process_refined(
+                    out["boxes_refined"], out["roi_cls"], out["roi_mask"],
+                    b["transformation_matrix"],
+                    score_threshold=kwargs["score_threshold"],
+                    nms_threshold=kwargs["nms_threshold"],
+                    gt_range=kwargs["gt_range"])
         with record_function("stage/post_process"):
             dets = post_process(out["cls_preds"], out["reg_preds"], anchors,
                                 b["transformation_matrix"],
@@ -298,7 +313,7 @@ def evaluate_dataset(model, batcher, dataset, anchors, postprocess_cfg, *,
                      batch_size: int = 1, max_frames: int | None = None,
                      fusion_method: str = "intermediate",
                      npy_dir: str | None = None, batch_hook=None,
-                     device=None) -> dict:
+                     heter_selector=None, device=None) -> dict:
     """The eval protocol over a dataset (coalign_tpu/inference.py:215-306;
     ref tools/inference.py:40-227): ``batcher``'s batches of ``dataset`` in
     order, through the infer fn of ``fusion_method``
@@ -313,7 +328,12 @@ def evaluate_dataset(model, batcher, dataset, anchors, postprocess_cfg, *,
     batch before inference (the offline CoAlign correction of
     tools/run.py). ``max_frames`` stops after the batch that reaches it.
     With ``npy_dir`` each batch's detections and gt are saved there
-    (dump_detections_npy), numbered by batch."""
+    (dump_detections_npy), numbered by batch. A ``heter_selector`` (the
+    JAX package's heterogeneous-agent AP sets, coalign_tpu/inference.py:
+    265-273) is refused: it waits for utils/heter.py (ROADMAP item 9)."""
+    if heter_selector is not None:
+        raise NotImplementedError("heter_selector waits for utils/heter.py's "
+                                  "agent selector (ROADMAP item 9)")
     infer = make_fusion_infer_fn(model, anchors, postprocess_cfg,
                                  fusion_method, device=device)
     max_num = int(postprocess_cfg.get("max_num", 100))

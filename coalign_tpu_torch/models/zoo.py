@@ -1,7 +1,8 @@
 """The model registry of the port (build_model) and its PointPillars
 models: the CoAlign flagship and the single-agent detectors. The SECOND
 family's models are in models/second_family.py, the PIXOR family's in
-models/pixor.py, the LSS camera family's in models/camera.py.
+models/pixor.py, the LSS camera family's in models/camera.py, the two-stage
+models' (FPV-RCNN, FVoxelRCNN) in models/fpvrcnn.py.
 
 Ports of coalign_tpu/models/zoo.py:
   * PointPillarBaselineMultiscale (:164-213; ref
@@ -57,6 +58,7 @@ from torch.profiler import record_function
 
 from coalign_tpu_torch.models.backbones import backbone_from_config
 from coalign_tpu_torch.models.camera import MODELS as LSS_FAMILY
+from coalign_tpu_torch.models.fpvrcnn import MODELS as TWO_STAGE
 from coalign_tpu_torch.models.fuse.fusion import build_fusion
 from coalign_tpu_torch.models.heads import (DetectionHeads,
                                             add_detection_heads,
@@ -414,12 +416,8 @@ _MODELS = {
     **SECOND_FAMILY,
     **PIXOR_FAMILY,
     **LSS_FAMILY,
+    **TWO_STAGE,
 }
-
-# models of the JAX package that the port does not have yet, each with the
-# ROADMAP item that brings it
-_UNPORTED = {"fpvrcnn": "the two-stage models (ROADMAP item 8)",
-             "fvoxelrcnn": "the two-stage models (ROADMAP item 8)"}
 
 
 def _lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -470,8 +468,6 @@ def build_model(config: dict, device=None, seed: int = 0) -> nn.Module:
     gives the same model on every device; a checkpoint replaces them
     (utils/weights.py)."""
     name = config["core_method"]
-    if name in _UNPORTED:
-        raise NotImplementedError(f"{name} waits for {_UNPORTED[name]}")
     if name not in _MODELS:
         raise KeyError(f"model {name!r} is not ported; have {sorted(_MODELS)}")
     dev = resolve_device(device)

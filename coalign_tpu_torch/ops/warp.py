@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from coalign_tpu_torch.ops.roi import bilinear_gather
+
 
 def warp_affine(src: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:
     """Warp a batch of maps, each by its own normalized affine.
@@ -35,7 +37,8 @@ def warp_affine(src: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:
 
 def _warp_bf16(src: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:
     """warp_affine of a bfloat16 map, as the JAX package's bilinear gather
-    computes it: float32 sample positions, zero outside the map."""
+    computes it (ops/roi.bilinear_gather): float32 sample positions, zero
+    outside the map."""
     n, c, h, w = src.shape
     a = affine.float()[..., None, None]                  # (N, 2, 3, 1, 1)
     ys = ((2.0 * torch.arange(h, device=src.device, dtype=torch.float32)
@@ -45,22 +48,7 @@ def _warp_bf16(src: torch.Tensor, affine: torch.Tensor) -> torch.Tensor:
     gx = a[:, 0, 0] * xs + a[:, 0, 1] * ys + a[:, 0, 2]
     gy = a[:, 1, 0] * xs + a[:, 1, 1] * ys + a[:, 1, 2]
     fx, fy = ((gx + 1.0) * w - 1.0) / 2.0, ((gy + 1.0) * h - 1.0) / 2.0
-    x0, y0 = torch.floor(fx), torch.floor(fy)
-    tx, ty = fx - x0, fy - y0
-    x0, y0 = x0.long(), y0.long()
-    b = torch.arange(n, device=src.device)[:, None, None]
-    dt = src.dtype
-
-    def tap(yi, xi):                                     # (N, H, W, C)
-        inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
-        v = src[b, :, yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
-        return v * inside[..., None].to(dt)
-
-    wx0, wx1 = (1 - tx)[..., None].to(dt), tx[..., None].to(dt)
-    ty_ = ty[..., None].to(dt)
-    top = tap(y0, x0) * wx0 + tap(y0, x0 + 1) * wx1
-    bot = tap(y0 + 1, x0) * wx0 + tap(y0 + 1, x0 + 1) * wx1
-    return (top * (1 - ty_) + bot * ty_).permute(0, 3, 1, 2)
+    return bilinear_gather(src, fx, fy).permute(0, 3, 1, 2)
 
 
 def warp_agents_to_ego(features: torch.Tensor, affines: torch.Tensor,

@@ -154,3 +154,34 @@ def assign_targets(gt_boxes: torch.Tensor, gt_mask: torch.Tensor,
     return {"pos_equal_one": pos.reshape(b, h, w, a).float(),
             "neg_equal_one": neg.reshape(b, h, w, a).float(),
             "targets": t.reshape(b, h, w, a * 7).float()}
+
+
+def assign_targets_per_agent(gt_boxes: torch.Tensor, gt_mask: torch.Tensor,
+                             lidar_pose_clean: torch.Tensor,
+                             agent_mask: torch.Tensor,
+                             spec: AnchorSpec) -> dict:
+    """Per-agent "single" labels of a batch (port of coalign_tpu/
+    postprocess/anchors.py:159; ref intermediate_fusion_dataset.py:363-377
+    supervise_single): the ego-frame gt projected into every agent's frame
+    with the clean poses, T_agent<-ego, and assigned against the same
+    anchor grid; a padded agent gets no positive and every anchor negative.
+
+    gt_boxes (B, M, 7), gt_mask (B, M), lidar_pose_clean (B, L, 6),
+    agent_mask (B, L). Returns assign_targets' labels on (B * L, ...), the
+    agents of a sample consecutive (the model's ``*_single`` rows)."""
+    from coalign_tpu_torch.utils.box_utils import project_boxes7_by_tfm
+    from coalign_tpu_torch.utils.transforms import x1_to_x2_tfm
+
+    b, l = agent_mask.shape
+    m = gt_mask.shape[1]
+    poses = lidar_pose_clean.to(gt_boxes.dtype)
+    tfm = x1_to_x2_tfm(poses[:, :1].expand(b, l, -1), poses)    # (B, L, 4, 4)
+    g = project_boxes7_by_tfm(gt_boxes[:, None].expand(b, l, m, 7),
+                              tfm[:, :, None], spec.order)
+    labels = assign_targets(g.reshape(b * l, m, 7),
+                            (gt_mask[:, None] & agent_mask[..., None])
+                            .reshape(b * l, m), spec)
+    valid = agent_mask.reshape(b * l, 1, 1, 1)
+    return {"pos_equal_one": torch.where(valid, labels["pos_equal_one"], 0.0),
+            "neg_equal_one": torch.where(valid, labels["neg_equal_one"], 1.0),
+            "targets": torch.where(valid, labels["targets"], 0.0)}

@@ -8,7 +8,8 @@ takes the batch at once, so the NMS IoU matrix is one kernel launch per
 batch.
 
 Maps are NCHW, as the model emits them; they are flattened in the reference
-order (permute to NHWC, then (H * W * A, ...)).
+order (permute to NHWC, then (H * W * A, ...)). The two-stage models' refined
+RoIs go through post_process_refined instead.
 """
 
 from __future__ import annotations
@@ -144,3 +145,36 @@ def post_process(cls_preds, reg_preds, anchors, transformation_matrix,
     if unc_preds is not None:
         out["uncertainty"] = ranked[..., 32:] * keep[..., None]
     return out
+
+
+def post_process_refined(boxes7, cls_logits, roi_mask, transformation_matrix,
+                         *, score_threshold: float, nms_threshold: float,
+                         gt_range, order: str = "hwl") -> dict:
+    """The two-stage models' RoI-refined outputs of a batch -> final boxes
+    (port of post_process_refined_frame, coalign_tpu/postprocess/
+    decode.py:172; ref fpvrcnn_postprocessor.py:21-246): sigmoid
+    confidence, boxes projected by ``transformation_matrix`` (B, 4, 4) into
+    the ego frame, valid where the RoI is, the score above the threshold
+    and some corner in range, rotated NMS (one IoU launch for the batch).
+
+    boxes7 (B, R, 7), cls_logits (B, R), roi_mask (B, R). Returns
+    corners3d (B, R, 8, 3), boxes7 (B, R, 7), scores (B, R) and mask
+    (B, R), ranked by score, zero where not kept."""
+    b, r = cls_logits.shape[:2]
+    scores = torch.sigmoid(cls_logits.reshape(b, r))
+    boxes7 = B.project_boxes7_by_tfm(boxes7, transformation_matrix[:, None],
+                                     order)
+    corners = B.boxes_to_corners_3d(boxes7, order)
+    valid = (roi_mask.reshape(b, r) & (scores > score_threshold)
+             & B.mask_corners_outside_range(corners, gt_range))
+    nms_order, keep = nms_rotated(corners[..., :4, :2], scores, valid,
+                                  nms_threshold)
+    ranked = torch.cat([corners.reshape(b, r, 24), boxes7, scores[..., None]],
+                       dim=-1)
+    ranked = torch.gather(ranked, 1, nms_order[..., None].expand(
+        -1, -1, ranked.shape[-1]))
+    return {"corners3d": ranked[..., :24].reshape(b, r, 8, 3)
+            * keep[..., None, None],
+            "boxes7": ranked[..., 24:31] * keep[..., None],
+            "scores": torch.where(keep, ranked[..., 31], 0.0),
+            "mask": keep}

@@ -54,6 +54,21 @@ _REFUSED_FLAGS = {
     "save_vis": "visualization/ (ROADMAP item 9)",
     "profile": "utils/profiling.py's device trace (ROADMAP item 9)",
 }
+# yaml blocks of the JAX package's inference that the port does not read
+# yet: evaluating such a config would give another AP without a word
+_REFUSED_BLOCKS = {
+    "heter": "utils/heter.py's agent selector (ROADMAP item 9)",
+}
+
+
+def _refuse_blocks(params: dict) -> dict:
+    """``params`` unchanged, or NotImplementedError for a block that the
+    port's inference does not read (_REFUSED_BLOCKS)."""
+    for block, what in _REFUSED_BLOCKS.items():
+        if params.get(block):
+            raise NotImplementedError(f"the yaml's {block!r} block waits "
+                                      f"for {what}")
+    return params
 
 
 def build_all(params: dict, train: bool = True, device=None):
@@ -260,8 +275,10 @@ def _box_align_hook(params: dict, device):
 def cmd_inference(opt):
     """Evaluate a run directory's checkpoint on its dataset; the result is
     printed and saved as ``eval_<fusion>.yaml`` in the run directory, and
-    with ``--save_npy`` each frame's detections and gt under ``npy/``."""
-    params, base, batcher, model, spec, dev = _load_model_dir(opt)
+    with ``--save_npy`` each frame's detections and gt under ``npy/``. A
+    config with a ``heter`` block is refused (_REFUSED_BLOCKS)."""
+    params, base, batcher, model, spec, dev = _load_model_dir(
+        opt, params_hook=_refuse_blocks)
     if not opt.fusion_method:
         # a late or early run is decoded with its own protocol
         opt.fusion_method = _fusion_method(params)

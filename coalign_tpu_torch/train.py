@@ -18,7 +18,9 @@ from torch.profiler import record_function
 
 from coalign_tpu_torch.data.prefetch import prefetch
 from coalign_tpu_torch.inference import to_device
-from coalign_tpu_torch.postprocess.anchors import AnchorSpec, assign_targets
+from coalign_tpu_torch.postprocess.anchors import (AnchorSpec,
+                                                   assign_targets,
+                                                   assign_targets_per_agent)
 from coalign_tpu_torch.postprocess.dense_bev import (DenseBevSpec,
                                                      assign_dense_targets)
 from coalign_tpu_torch.runtime import configure_cuda, resolve_device
@@ -98,7 +100,9 @@ def make_train_step(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
 
     ``batch`` is the batcher's dict (numpy arrays or tensors). The step
     assigns labels from ``gt_boxes``/``gt_mask`` on the device
-    (assign_labels: anchor targets, or PIXOR's dense label map), runs the
+    (assign_labels: anchor targets, or PIXOR's dense label map; for a loss
+    that ``wants_single_labels``, the two-stage models', each agent's own
+    ``*_single`` targets too, assign_targets_per_agent), runs the
     model in train mode, the loss, the backward pass, ``optimizer.step()``
     and ``scheduler.step()``. The terms come back as 0-dim tensors on the
     device, detached: reading them (``float``) is the caller's sync. The
@@ -125,6 +129,13 @@ def make_train_step(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
                 b[key] = torch.as_tensor(batch[key], dtype=dtype, device=dev)
             labels = assign_labels(b["gt_boxes"], b["gt_mask"], spec,
                                    float_dtype)
+            if getattr(loss_fn, "wants_single_labels", False):
+                # each agent's own labels for its *_single maps (the
+                # two-stage loss; coalign_tpu/train.py:111-123)
+                singles = assign_targets_per_agent(
+                    b["gt_boxes"].to(float_dtype), b["gt_mask"],
+                    b["lidar_pose_clean"], b["agent_mask"], spec)
+                labels.update({k + "_single": v for k, v in singles.items()})
         t_out = {}
         if teacher is not None:
             with torch.no_grad(), record_function("stage/teacher"):

@@ -18,23 +18,28 @@ ROUNDS_PER_SYNC = 8
 
 
 def nms_rotated(corners: torch.Tensor, scores: torch.Tensor,
-                valid_mask: torch.Tensor, iou_threshold: float):
+                valid_mask: torch.Tensor, iou_threshold: float,
+                max_keep: int | None = None):
     """Greedy rotated NMS over a batch of masked corner boxes.
 
     corners (B, K, 4, 2), scores (B, K), valid_mask (B, K) bool. A box is
     suppressed when its IoU with a kept, higher-scoring box exceeds
-    ``iou_threshold``.
+    ``iou_threshold``. The IoU is the kernel's, in float32 (corners of
+    another float dtype are cast).
 
     Returns (order (B, K) int64, keep (B, K) bool): ``order`` ranks the boxes
     by score, high to low (stable, lower index first on ties); ``keep[:, r]``
-    says whether the r-th ranked box survived.
+    says whether the r-th ranked box survived. With ``max_keep`` below K
+    only the first ``max_keep`` survivors in rank order stay kept (the JAX
+    package's cap).
     """
     k = corners.shape[1]
     scores = torch.where(valid_mask, scores, float("-inf"))
     order = torch.argsort(-scores, dim=-1, stable=True)
     rank = torch.argsort(order, dim=-1, stable=True)
 
-    iou = rotated_iou(corners.contiguous(), corners.contiguous())  # (B, K, K)
+    c = corners.float().contiguous()
+    iou = rotated_iou(c, c)                                   # (B, K, K)
     # suppress[b, j, i]: the higher-ranked j would kill i
     suppress = (iou > iou_threshold) & (rank[:, :, None] < rank[:, None, :])
 
@@ -52,4 +57,7 @@ def nms_rotated(corners: torch.Tensor, scores: torch.Tensor,
         done += min(ROUNDS_PER_SYNC, k - done)
         if torch.equal(keep, prev):
             break
-    return order, torch.gather(keep, 1, order)
+    keep = torch.gather(keep, 1, order)
+    if max_keep is not None and max_keep < k:
+        keep = keep & (torch.cumsum(keep.to(torch.int64), dim=1) <= max_keep)
+    return order, keep

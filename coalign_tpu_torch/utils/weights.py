@@ -22,7 +22,8 @@ model's ``fusion_nets_{i}`` and ``fusion_net.{i}``. It also takes the SECOND
 family's variables (the inverse of ckpt_import.py:708-880:
 ``_SECOND_3D_SLOTS``, ``_conv3d_weight``'s spconv 1.x layout, which the
 port keeps, ``_map_ssfa`` and the CIA-SSD head names; VoxelNet's VFE,
-middle convs and 2D backbone), the PIXOR family's (the inverse of
+middle convs and 2D backbone; FPV-RCNN's and FVoxelRCNN's trunk, heads and
+stage 2, which have no reference checkpoint layout to invert), the PIXOR family's (the inverse of
 ckpt_import.py:652 ``_map_pixor_family``) and the LSS camera family's
 (the inverse of ckpt_import.py:545 ``_map_lss_family``).
 
@@ -348,10 +349,46 @@ _CIASSD_HEADS = {"cls": "conv_cls", "reg": "conv_box", "dir": "conv_dir",
                  "iou": "conv_iou", "unc": "conv_unc"}
 
 
-def _second_key(path: str, ssfa: bool, layer_nums) -> tuple[str, str]:
-    """A flax path of the SECOND family -> (torch key, layout kind)."""
+# the two-stage models' stage 2 (coalign_tpu/models/fpvrcnn.py, vsa.py,
+# ops/pointnet2.py): flax module prefix -> the port's module
+_TWO_STAGE_MODULES = {"VoxelSetAbstraction_0/SAModuleMSG_0/": "vsa.sa.",
+                      "VoxelSetAbstraction_0/": "vsa.",
+                      "SAModuleMSG_0/": "roi_grid_pool.",
+                      "RoIHead_0/": "roi_head."}
+
+
+def _two_stage_key(path: str) -> tuple[str, str] | None:
+    """A flax path of FPV-RCNN's stage 2 -> (torch key, layout kind), or
+    None for a path of the stage-1 trunk. A set abstraction's Dense_k and
+    MaskedBatchNorm_k are its ``linears.k`` and ``norms.k``; the VSA's
+    own are ``fusion`` and ``norm``; the RoI head's ``dense.k``."""
+    prefix = next((p for p in _TWO_STAGE_MODULES if path.startswith(p)),
+                  None)
+    if prefix is None:
+        return None
+    mod, leaf = path[len(prefix):].rsplit("/", 1)
+    kind, i = mod.rsplit("_", 1)
+    field = _LEAF_FIELDS[leaf]
+    base = _TWO_STAGE_MODULES[prefix]
+    if base == "vsa.":
+        name = {"Dense": "fusion", "MaskedBatchNorm": "norm"}[kind]
+    elif base == "roi_head.":
+        name = f"dense.{i}"
+    else:
+        name = {"Dense": "linears", "MaskedBatchNorm": "norms"}[kind] + f".{i}"
+    return f"{base}{name}.{field}", ("linear" if leaf == "kernel"
+                                     else "plain")
+
+
+def _second_key(path: str, ssfa: bool, layer_nums,
+                two_stage: bool = False) -> tuple[str, str]:
+    """A flax path of the SECOND family -> (torch key, layout kind). The
+    two-stage models keep the JAX package's heads (``{kind}_head``, the
+    IoU head with its bias) on the SSFA trunk."""
     leaf = path.split("/")[-1]
     field = _LEAF_FIELDS[leaf]
+    if two_stage and (found := _two_stage_key(path)) is not None:
+        return found
     if m := re.fullmatch(r"VoxelBackbone8x_0/Conv3DBNReLU_(\d+)/(\w+)/\w+",
                          path):
         block = (f"{'spconv_block' if ssfa else 'backbone_3d'}."
@@ -383,7 +420,8 @@ def _second_key(path: str, ssfa: bool, layer_nums) -> tuple[str, str]:
         mod = f"deconv_block_{i}" if i < 2 else f"w_{i - 2}"
         return f"ssfa.{mod}.1.{field}", "plain"
     if m := re.fullmatch(r"DetectionHeads_0/(\w+)_head/\w+", path):
-        head = f"head.{_CIASSD_HEADS[m[1]]}" if ssfa else f"{m[1]}_head"
+        head = (f"head.{_CIASSD_HEADS[m[1]]}" if ssfa and not two_stage
+                else f"{m[1]}_head")
         return f"{head}.{field}", "conv" if leaf == "kernel" else "plain"
     if path.startswith("BaseBEVBackbone_0/"):
         key, kind = _torch_key("backbone/" + path[len("BaseBEVBackbone_0/"):],
@@ -398,8 +436,12 @@ def _second_family_state(flat: dict, layer_nums) -> dict:
     package and C-major by the port (and the reference): its kernel's input
     rows are permuted (ckpt_import.py:843-850, inverted). The JAX
     package's IoU head has a bias that CIA-SSD's reference head lacks: it
-    must be 0 (no loss reaches it), and is dropped."""
+    must be 0 (no loss reaches it), and is dropped. The two-stage models
+    (a module of _TWO_STAGE_MODULES) keep it, and their stage 2 maps by
+    _two_stage_key.
+    """
     ssfa = any(p.startswith("SSFA_0/") for p in flat)
+    two_stage = any(p.startswith(tuple(_TWO_STAGE_MODULES)) for p in flat)
     c3d = next((v.shape[-1] for p, v in flat.items() if re.fullmatch(
         r"(VoxelBackbone8x_0/Conv3DBNReLU_11|Conv3DBNReLU_2)/Conv_0/kernel",
         p)), None)
@@ -410,7 +452,8 @@ def _second_family_state(flat: dict, layer_nums) -> dict:
                "conv3d": lambda v: np.transpose(v, (4, 3, 0, 1, 2))}
     out = {}
     for path, value in flat.items():
-        if ssfa and path == "DetectionHeads_0/iou_head/bias":
+        if ssfa and not two_stage and \
+                path == "DetectionHeads_0/iou_head/bias":
             if np.any(value != 0):
                 raise ValueError("CIA-SSD's IoU head has no bias, but the "
                                  "JAX variables' is not 0")
@@ -419,7 +462,7 @@ def _second_family_state(flat: dict, layer_nums) -> dict:
             kh, kw, cd, o = value.shape
             value = value.reshape(kh, kw, cd // c3d, c3d, o).transpose(
                 0, 1, 3, 2, 4).reshape(kh, kw, cd, o)
-        key, kind = _second_key(path, ssfa, layer_nums)
+        key, kind = _second_key(path, ssfa, layer_nums, two_stage)
         out[key] = convert[kind](value)
     return out
 

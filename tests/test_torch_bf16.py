@@ -14,10 +14,12 @@ under bfloat16 in both packages. Bounds:
     SECOND's are 0: every rounding is the JAX package's. The LSS model is
     held stage by stage: its camera encoder on the images, then the rest
     (lift, splat, BEV encoder, fusion, heads) fed the JAX camera encoder's
-    bfloat16 outputs. End to end its ratio is ~0.55-0.7 and only bounded
-    by 1: XLA's float32 accumulation order in a few of EfficientNet's
-    convolutions rounds ~1e-4 of their bfloat16 outputs the other way,
-    and 30 further layers and the splat's sums spread those flips;
+    bfloat16 outputs. End to end its ratio is ~0.55-0.7, bounded by 0.8:
+    XLA's float32 accumulation order in EfficientNet's convolutions from
+    block 10 on rounds ~1e-4 of their bfloat16 outputs the other way (fed
+    the JAX package's own block-9 output, the port's blocks 10-15 and the
+    encoder's head lie 0.24-0.26 from it, the whole encoder's gap), and 30
+    further layers and the splat's sums spread those flips;
   * the dtype of what each policy site gives (the pillar encoder's canvas,
     the backbone's scales, the fusion, SSFA, the camera and BEV encoders)
     is the JAX package's; the heads' outputs are float32, as the JAX
@@ -199,7 +201,12 @@ def test_bf16_matches_jax_bf16(name):
     if name != "lss_intermediate":
         assert max(ratios.values()) <= 0.5, ratios
         return
-    assert max(ratios.values()) < 1.0, ratios
+    # measured 0.54-0.68 (the single maps' dir and reg the largest): the
+    # encoder's tail, from block 10 on, rounds ~1e-4 of its bfloat16
+    # outputs the other way from XLA's (test_lss_encoder_tail_from_jax_
+    # block9), and the layers after it spread those flips; 0.8 leaves ~0.12
+    # of margin
+    assert max(ratios.values()) <= 0.8, ratios
     # stage 1, the camera encoder: context and depth logits
     enc = {}
     for i, key in enumerate(("context", "depth_logits")):
@@ -216,6 +223,42 @@ def test_bf16_matches_jax_bf16(name):
           "the rest", {k: round(v, 3) for k, v in rest.items()})
     assert max(enc.values()) <= 0.5, enc
     assert max(rest.values()) <= 0.5, rest
+
+
+def test_lss_encoder_tail_from_jax_block9():
+    """ROADMAP §3 fault 14: the LSS camera encoder's bfloat16 gap is the
+    tail's. Fed the JAX package's bfloat16 output of EfficientNet's block
+    9 (and its reduction_3 endpoint, block 4's output), the port's blocks
+    10-15, up1, up2 and heads give the camera encoder's context and depth
+    logits at most half as far from the JAX package's bfloat16 ones as
+    those lie from its float32 ones (measured 0.240 and 0.258, the whole
+    encoder's 0.237 and 0.253: the first ten blocks add nothing)."""
+    cfg, batch, variables, model = _case("lss_intermediate")
+    sites = [(("camencode", "trunk", "blocks_4"), "__call__", "b4"),
+             (("camencode", "trunk", "blocks_9"), "__call__", "b9"),
+             (("camencode",), "__call__", "camencode")]
+    _, j32 = _jax_run(cfg, variables, batch, sites)
+    jax_set_dtype(jnp.bfloat16)
+    _, j16 = _jax_run(cfg, variables, batch, sites)
+    jax_set_dtype(None)
+    enc = model.camencode
+    LAYERS.set_compute_dtype(torch.bfloat16)
+    with torch.no_grad():
+        x = torch.from_numpy(_nchw(j16["b9"])).to(torch.bfloat16)
+        x = r4 = enc.trunk._blocks[10](x)
+        for block in enc.trunk._blocks[11:]:
+            x = block(x)
+        f = enc.up1(x, r4)
+        f = enc.up2(f, torch.from_numpy(_nchw(j16["b4"])).to(torch.bfloat16))
+        got = (enc.image_head(f), enc.depth_head(f))
+    ratios = {}
+    for i, key in enumerate(("context", "depth_logits")):
+        w16, w32 = (_nchw(j["camencode"][i]) for j in (j16, j32))
+        ratios[key] = float(np.abs(got[i].float().numpy() - w16).mean()
+                            / np.abs(w16 - w32).mean())
+    print("lss_intermediate encoder tail from block 10",
+          {k: round(v, 3) for k, v in ratios.items()})
+    assert max(ratios.values()) <= 0.5, ratios
 
 
 def test_bf16_flag_sets_the_policy(monkeypatch):

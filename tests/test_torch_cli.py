@@ -16,8 +16,9 @@ tests/test_pose_graph_eval.py::test_pose_graph_eval_cli
     other maps;
   * lss_coalign_fusion.yaml trains on a camera tree and its run directory
     infers, also under --bf16;
-  * the refused subcommand, flags and datasets raise and name their
-    ROADMAP item; without --device and without a GPU every command raises;
+  * the refused subcommand, flags, datasets and a config's ``heter`` block
+    raise and name their ROADMAP item; without --device and without a GPU
+    every command raises;
 """
 
 import os
@@ -229,15 +230,11 @@ def test_refused_commands_raise(trained, tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="no net_epoch"):
         run.main(["inference", "--model_dir", str(tmp_path / "orbax"), *CPU])
     # the real precalc.yaml's SECOND stage-1 builds, the family ported: none
-    # of its dataset directories exists here, so it writes nothing; the
-    # two-stage models are refused
+    # of its dataset directories exists here, so it writes nothing
     hypes = os.path.join(os.path.dirname(__file__), "..", "coalign_tpu",
                          "hypes_yaml")
     assert run.main(["precalc", "-y", os.path.join(hypes, "opv2v",
                                                    "precalc.yaml"), *CPU]) == []
-    with pytest.raises(NotImplementedError, match="item 8"):
-        run.main(["train", "-y", os.path.join(hypes, "dairv2x/fpvrcnn.yaml"),
-                  *CPU])
     # without a GPU the commands need --device cpu
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for main, argv in ((run.main, ["config_generate", "-y", cfg]),
@@ -246,6 +243,27 @@ def test_refused_commands_raise(trained, tmp_path, monkeypatch):
                        (pose_graph_eval.main, ["--model_dir", model_dir])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
+
+
+def test_heter_block_is_refused(trained, tmp_path):
+    """A run directory whose config has a ``heter`` block (the JAX
+    package's heterogeneous AP sets, coalign_tpu/tools/run.py:257-268) is
+    refused, naming ROADMAP item 9, and so is evaluate_dataset's
+    ``heter_selector``, rather than evaluated to another AP without a
+    word."""
+    from coalign_tpu_torch.inference import evaluate_dataset
+    _, _, model_dir, _ = trained
+    heter = tmp_path / "heter"
+    shutil.copytree(model_dir, heter)
+    params = load_yaml(str(heter / "config.yaml"))
+    params["heter"] = {"lidar_ratio": 0.5, "ego_modality": "lidar"}
+    with open(heter / "config.yaml", "w") as f:
+        yaml.safe_dump(params, f)
+    with pytest.raises(NotImplementedError, match="heter.*item 9"):
+        run.main(["inference", "--model_dir", str(heter), *CPU])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        evaluate_dataset(None, None, None, None, {}, heter_selector=object(),
+                         device="cpu")
 
 
 @pytest.mark.parametrize("bf16", [False, True])

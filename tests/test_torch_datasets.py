@@ -26,6 +26,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from coalign_tpu.data import batch as JBATCH
 from coalign_tpu.data import build_dataset as jax_build_dataset
@@ -256,15 +257,17 @@ def test_v2xset_reads_as_opv2v(jax_tree, jax_numpy_batcher):
 
 def test_unported_datasets_and_inputs_raise(jax_tree, scenes, tmp_path):
     # DAIR-V2X and V2X-Sim read (tests/test_torch_dairv2x_v2xsim.py); the
-    # two-stage model of their fpvrcnn.yaml is refused
+    # two-stage model of their fpvrcnn.yaml builds (ROADMAP item 8 ported
+    # it), on the meta device: its full-size grid needs no weights here
     from coalign_tpu_torch.config.yaml_utils import load_yaml
-    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.models.zoo import _MODELS
     for folder in ("dairv2x", "v2xsim"):
         y = load_yaml(os.path.join(os.path.dirname(__file__), "..",
                                    "coalign_tpu", "hypes_yaml", folder,
                                    "fpvrcnn.yaml"))
-        with pytest.raises(NotImplementedError, match="item 8"):
-            build_model(y["model"], device="cpu")
+        with torch.device("meta"):
+            model = _MODELS[y["model"]["core_method"]](y["model"]["args"])
+        assert type(model).__name__ == "FpvRcnn"
     with pytest.raises(KeyError, match="unknown dataset"):
         build_dataset(_params(jax_tree, "intermediate", "kitti"))
     with pytest.raises(FileNotFoundError):

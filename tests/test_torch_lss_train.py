@@ -19,15 +19,21 @@ for its step). Beyond those:
     ``*_single`` outputs (make_train_step gives unreached parameters a
     zero gradient, as JAX's are).
 
-The multiscale fusion (lss_coalign_fusion.yaml's att_ms) is held in eval
-mode by tests/test_torch_lss.py: the JAX package's jitted float64 step of
-it, under the float32 pins patched to float64, drifts 0.15 from its own
-eager forward (not so the single-scale model), so it is no reference for a
-float64 step.
+The multiscale fusion (lss_coalign_fusion.yaml's att_ms): the JAX
+package's jitted float64 step of it, under the float32 pins patched to
+float64, drifts from its own eager forward (its loss terms by ~5e-4
+relative), so its step is held against the JAX step computed eagerly
+(``jax.disable_jit()``), whose loss terms equal the eager forward's
+(ROADMAP §3 fault 15), at the same bounds: test_att_ms_train_step_matches_
+jax_eager, with the ResNet-101 camera encoder (frozen in both, as the
+EfficientNet one is) and one camera an agent, which keep the eager JAX
+step to ~2 minutes (the EfficientNet one takes ~4: most of it compiling
+each primitive).
 """
 
 import types
 
+import jax
 import numpy as np
 import torch
 
@@ -37,7 +43,7 @@ from coalign_tpu_torch.postprocess.anchors import make_anchor_spec
 
 from chip_smoke import HYPES
 from test_torch_baselines_train import hold_step, port_step
-from test_torch_lss import MODELS, camera_batch, seeded_lss_pair
+from test_torch_lss import R101, MODELS, camera_batch, seeded_lss_pair
 
 torch.set_num_threads(4)
 ANCHORS = {"W": 40, "H": 40, "l": 3.9, "w": 1.6, "h": 1.56, "r": [0, 90],
@@ -87,3 +93,36 @@ def test_intermediate_train_step_matches_jax(monkeypatch):
     for key in frozen:
         torch.testing.assert_close(params[key], before[key] * (1 - lr * wd),
                                    rtol=1e-12, atol=0, msg=key)
+
+
+def _seeded_gt(batch: dict) -> dict:
+    """Three seeded gt boxes in 4 slots (no exact anchor-IoU ties, ROADMAP
+    section 3)."""
+    rng = np.random.default_rng(13)
+    batch["gt_boxes"] = np.zeros((1, 4, 7), np.float32)
+    batch["gt_boxes"][0, :3] = np.concatenate([
+        rng.uniform(-6, 6, (3, 2)), np.full((3, 1), -0.6),
+        rng.uniform([1.4, 1.5, 3.5], [1.8, 2.1, 4.8], (3, 3)),
+        rng.uniform(-np.pi, np.pi, (3, 1))], axis=1)
+    batch["gt_mask"] = np.array([[True, True, True, False]])
+    return batch
+
+
+def test_att_ms_train_step_matches_jax_eager(monkeypatch):
+    """Fault 15: lss_coalign_fusion.yaml's step (att_ms, supervise_single,
+    the frozen camera encoder) against the JAX step computed eagerly, at
+    hold_step's bounds."""
+    y = load_yaml(f"{HYPES}/lss_coalign_fusion.yaml")
+    assert y["model"]["args"]["fusion_args"]["core_method"] == "att_ms"
+    assert y["model"]["args"]["supervise_single"]
+    MODELS["att_ms_r101"] = ("lift_splat_shoot_intermediate", {
+        **R101, "supervise_single": True}, 2)
+    batch = _seeded_gt(camera_batch(b=1, l=2, n=1, seed=12))
+    jmodel, variables, model = seeded_lss_pair("att_ms_r101", batch, key=3)
+    np64 = types.ModuleType("numpy")
+    np64.__dict__.update(vars(np))
+    np64.float32 = np.float64
+    monkeypatch.setattr(JTRUNKS, "np", np64)
+    with jax.disable_jit():
+        hold_step(monkeypatch, jmodel, variables, model, batch, y["loss"],
+                  ANCHORS, TARGETS, y["optimizer"], frozen=("camencode.",))
