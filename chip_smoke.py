@@ -17,9 +17,16 @@ Phases, each printing one JSON line with its elapsed seconds:
              reference's own recording: head maps and the final box set;
              the main path's kernel launches are counted here;
   5. serve   20 timed requests of the full-width infer fn (CUDA events);
-     profile torch.profiler over PROFILE_REQUESTS (3) more: device and
+     profile torch.profiler over PROFILE_REQUESTS (1) more: device and
              host time per stage
              of the forward and post-processing, the device's busy share;
+     serving the flagship as a deployment artifact (serving_check):
+             run export of a run directory (torch.export, cuda and cpu),
+             load_artifact's CUDA-graph capture, the replay's box set
+             against the eager request's and the recording's, one IoU op
+             node and one kernel launch a replay, the CPU reload's box set,
+             replay and eager ms, busy share, launches and the NMS's device
+             ms in each;
   6. ap      AP30/50/70 of the tiny flagship on the 10 recorded frames;
   7. train   the yaml's flagship trained from scratch at full width: B=4
              synthetic frames of 5 agents at bench.py's train scale, the
@@ -45,18 +52,18 @@ Phases, each printing one JSON line with its elapsed seconds:
              noise: stage-1, pose graph, flagship, post-processing; 2 IoU
              launches a request, ms beside the flagship alone, the pose
              errors before and after;
-     coalign_profile   torch.profiler over 3 requests, with the
+     coalign_profile   torch.profiler over 1 request, with the
              stage/stage1 and stage/pose_graph ranges beside the flagship's;
  11. late    late fusion of the recording's 5 agents (B=1) through
              make_late_infer_fn with stage1's detector: CUDA against the
              CPU (box sets) in the modes late and no, 2 IoU launches a
              request (the agents' NMS at (5, 512), the joint NMS at
-             (1, 500), held against the plain version), 20 timed requests
+             (1, 500), held against the plain version), 10 timed requests
              and a profile each;
  12. early   early fusion of the same agents merged into one (1, 1, 30000,
              4) cloud, pointpillar_early.yaml's point_pillar with the
              flagship checkpoint's weights: CUDA against the CPU (head maps,
-             box set), one IoU launch, 20 timed requests and a profile;
+             box set), one IoU launch, 10 timed requests and a profile;
  13. stage1_train   pointpillar_uncertainty.yaml's detector trained from
              scratch at full width on late train batches (B=4, one agent a
              frame) with the uncertainty loss; stage1_train_profile;
@@ -77,7 +84,7 @@ Phases, each printing one JSON line with its elapsed seconds:
              seeded; CUDA against the CPU (head maps within 2e-3, the same
              box set at match_box_sets' bounds, at the yaml's score
              threshold lowered until 10 boxes remain, the threshold
-             printed), 1 IoU launch a request, peak memory, 20 timed
+             printed), 1 IoU launch a request, peak memory, 10 timed
              requests and a profile;
      baseline_recordings   DiscoNet's and V2VNet's reference checkpoints
              on CUDA against their recordings (2e-4).
@@ -90,7 +97,8 @@ Phases, each printing one JSON line with its elapsed seconds:
              loop's busy share); the C++ data plane against numpy on the
              tree (exact parse, host ms a frame, the eval loop on each path,
              DeviceBatchCache's second epoch from the card); run precalc
-             and the inference it corrects;
+             and the inference it corrects; inference with --save_vis and
+             --profile, and with a yaml heter block;
              the noise_sweep and pose_graph_eval command lines; the tiny
              reference run on CUDA against the CPU.
  16. fusions_rest   one line for each of pointpillar_where2comm, _mash and
@@ -100,7 +108,7 @@ Phases, each printing one JSON line with its elapsed seconds:
              mask with its single cls bias shifted so that half the
              neighbours' pixels are sent, MASH's corr_vol,
              robust V2VNet's pose outputs, the box set), 1 IoU launch a
-             request, peak memory, 20 timed requests and a profile.
+             request, peak memory, 10 timed requests and a profile.
  17. train_rest   B=4 full-width train steps of robust V2VNet at stages 0,
              1 and 2 (the frozen parameters bit-identical after the
              steps), MASH, Where2comm and DiscoNet's KD step (student and
@@ -142,14 +150,14 @@ Phases, each printing one JSON line with its elapsed seconds:
              200 and 160 x 160 canvases, 2 and 5 agents of ~30,000 points),
              run inference of each from disk with fullscale_multiscale.pth
              (1 IoU launch a frame, frames/s), frame 0 CUDA against the
-             CPU (maps within 2e-3, the same box set), 20 timed requests;
+             CPU (maps within 2e-3, the same box set), 10 timed requests;
              then the DAIR CoAlign two-pass request (dairv2x/
              pointpillar_uncertainty.yaml's stage-1, the pose graph at L=2:
              2 IoU launches, at (2, 512) and (1, 512));
  21. pixor   pixor_intermediate.yaml at its full raster (704 x 400 x 21, 5
              agents) with pixor_inter.pth's shared weights: CUDA against
              the CPU (maps within 2e-3 of each map's largest, the same box
-             set), 1 IoU launch, 20 timed requests and a profile;
+             set), 1 IoU launch, 10 timed requests and a profile;
              pixor_recordings, pixor.pth and pixor_inter.pth against their
              recordings on the card; pixor_train, its B=4 step.
  22. lss_cells   fault 12 on the card: the splat's cells of the full-width
@@ -159,14 +167,14 @@ Phases, each printing one JSON line with its elapsed seconds:
              480 x 640, 48 LID bins, a 240 x 240 BEV), seeded weights:
              CUDA against the CPU (maps within 2e-3 of each map's largest,
              the same box set at a score threshold lowered until 10 boxes
-             remain), 1 IoU launch, 20 timed requests; lss_profile by stage
+             remain), 1 IoU launch, 10 timed requests; lss_profile by stage
              (camera_trunk, lift, splat, bev_encoder, fusion, heads,
              post_process); lss_single, lss_single_efficientnet and
              _resnet101 once each through late fusion (2 IoU launches);
-     lss_train   its B = 4 step (3 warm-up, 5 timed), peak memory, loss
+     lss_train   its B = 4 step (3 warm-up, 3 timed), peak memory, loss
              terms; lss_train_parity, a tiny LSS's step on CUDA against the
              CPU (train_parity's bounds);
- 24. camera_disk   a camera fixture tree (4 frames, 5 agents, 4 PNGs of
+ 24. camera_disk   a camera fixture tree (2 frames, 5 agents, 4 PNGs of
              600 x 800 each) written by the port, the host's read-and-decode
              ms a frame, run inference of lss_coalign_fusion.yaml on it
              (frames/s, 1 IoU launch a frame);
@@ -183,12 +191,12 @@ Phases, each printing one JSON line with its elapsed seconds:
              CUDA against the CPU (stage-1 maps, RoIs, refined boxes and
              confidences within 2e-3 of each map's largest, the masks
              equal, the box set with at least 10 boxes), 2 IoU launches a
-             request, peak memory, 20 timed requests and a profile (over 2
-             FPV-RCNN requests, 5 FVoxelRCNN ones) with the
+             request, peak memory, 5 FPV-RCNN and 10 FVoxelRCNN timed
+             requests and a profile (over one request of each) with the
              stage/voxelize, backbone_3d, bev_trunk, stage1_decode,
              matcher, fps, ball_query, roi_head and post_process ranges,
              and the plain matcher's ms at (1, 160);
-     fpvrcnn_train   fpvrcnn.yaml's B=4 step (1 warm-up, 3 timed), 1 IoU
+     fpvrcnn_train   fpvrcnn.yaml's B=4 step (1 warm-up, 2 timed), 1 IoU
              launch a step (the stage-1 NMS; the JAX package's step trains
              stage 1 alone); fpvrcnn_parity, a tiny FPV-RCNN's step on CUDA
              against the CPU (train_parity's bounds).
@@ -367,7 +375,7 @@ YAML_BOX_ALIGN = {"use_uncertainty": True, "landmark_SE2": True,
                   "abandon_hard_cases": True, "drop_hard_boxes": True}
 YAML_NOISE = {"pos_std": 0.2, "rot_std": 0.2}
 ORACLE_NOISE = {"pos_std": 0.4, "rot_std": 2.0}
-COALIGN_REQUESTS = 20
+COALIGN_REQUESTS = 10
 
 # Late and early fusion and stage-1 training at full width: the point_pillar
 # of coalign_tpu/hypes_yaml/opv2v/pointpillar_{late,early}.yaml (the
@@ -385,11 +393,11 @@ YAML_UNC_LOSS = {"core_method": "point_pillar_uncertainty_loss",
                  "args": {**YAML_LOSS, "kl": {"weight": 0.5,
                                               "xy_loss_type": "l2",
                                               "angle_weight": 1.0}}}
-LATE_REQUESTS = 20
+LATE_REQUESTS = 10
 # calls in a profile (profile_calls): the script's profiles took ~0.8 ms of
 # host time for each kernel launch they recorded, and with 5 calls a
 # profile the script ran 1,156 s of its 1,200 on a slow host
-PROFILE_REQUESTS = 3
+PROFILE_REQUESTS = 1
 
 # The tiny late-fusion training of tests/test_late_inference.py (ARGS, its
 # anchors, POST, its loss, scenes and batcher), which imports JAX, with an
@@ -468,6 +476,7 @@ HYPES = os.path.join(HYPES_ROOT, "opv2v")
 DISK_SCENES = {**TRAIN_SCENES, "num_frames": 8, "seed": 21}
 DISK_FRAMES_PER_SCENARIO = 4
 DISK_SWEEP_LEVELS = "0,0.4"
+DISK_VIS_FRAMES = 4
 # the tiny reference-style run directory: the tiny flagship of the ap phase
 # (coalign_multiscale.pth) on a tree at its +-12.8 m range; its config
 # leaves pad_parity unset, as a reference run's does
@@ -1340,6 +1349,219 @@ def _capture_iou_inputs():
     return captured, restore
 
 
+SERVING_REQUESTS = 20
+SERVING_SCENES = {**DISK_SCENES, "num_frames": 1, "seed": 23}
+
+
+def pad_points(batch: dict, n_points: int) -> dict:
+    """``batch`` with its points and point mask padded to ``n_points`` a
+    agent (masked-out slots, which change no output)."""
+    out = dict(batch)
+    extra = n_points - batch["points"].shape[2]
+    out["points"] = np.pad(batch["points"], ((0, 0), (0, 0), (0, extra),
+                                             (0, 0)))
+    out["point_mask"] = np.pad(batch["point_mask"], ((0, 0), (0, 0),
+                                                     (0, extra)))
+    return out
+
+
+def capture(fn) -> tuple:
+    """``fn`` captured as a CUDA graph after one warm-up call on a side
+    stream. Returns (the graph, the outputs of the captured call, which
+    each replay rewrites)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device ms a call of ``fn`` captured as a CUDA graph: CUDA events
+    around ``reps`` replays queued behind a sleep kernel (queued_ms)."""
+    return queued_ms(capture(fn)[0].replay, reps)
+
+
+def iou_kernel_launches(events) -> int:
+    """Launches of the rotated-IoU kernel among a profile's events."""
+    return sum(e.count for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "rotated_iou_kernel" in e.key)
+
+
+def serving_check(card, infer, batch: dict, io) -> dict:
+    """The serving phase: the flagship as a deployment artifact, replayed
+    as a CUDA graph, at full width.
+
+      export  run export (the CLI) of a reference-style run directory
+              (pointpillar_coalign.yaml on a one-frame fixture tree of
+              SERVING_SCENES, the recording's score and NMS thresholds,
+              fullscale_multiscale.pth), platforms cuda and cpu; the CUDA
+              program holds one rotated-IoU op node;
+      load    load_artifact on CUDA: warm-up on a side stream, then one
+              capture (the kernel launched through the op in both);
+      replay  the recording's batch, padded to the contract's points: the
+              replayed detections have the eager make_infer_fn's box set
+              (match_box_sets' bounds) and mask, and the recording's box
+              set; the profiler over one replay sees 1 kernel launch;
+              SERVING_REQUESTS replays against as many eager requests (CUDA
+              events), the busy share and launches of one profiled replay,
+              the NMS's device ms as the program runs it (K = 512 rounds
+              with no host read, captured) against the eager chunked one;
+              the kernel's launch on that NMS input as a graph node
+              (graph_ms) and in the profiled replay, beside its bound;
+      cpu     the artifact reloaded on the CPU gives the recording's box
+              set.
+    Returns the fields of the phase line."""
+    import shutil
+
+    from coalign_tpu_torch.data import SyntheticScenes
+    from coalign_tpu_torch.data.fixtures import write_opv2v_fixture
+    from coalign_tpu_torch.kernels import rotated_iou as K
+    from coalign_tpu_torch.serving import load_artifact, program_file
+    from coalign_tpu_torch.tools import run
+
+    work = os.path.join(ROOT, "coalign_tpu_torch", "_build", "serving")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    tree = write_opv2v_fixture(os.path.join(work, "opv2v"),
+                               SyntheticScenes(**SERVING_SCENES), 1)
+    params = hypes_at("pointpillar_coalign", tree)
+    params["postprocess"]["target_args"]["score_threshold"] = float(
+        io["score_threshold"])
+    params["postprocess"]["nms_thresh"] = float(io["nms_thresh"])
+    run_dir = write_run_dir(os.path.join(work, "run"), params,
+                            os.path.join(GOLDEN, "fullscale_multiscale.pth"))
+    art = os.path.join(work, "artifact")
+
+    torch.cuda.synchronize()
+    K.rotated_iou.launches = 0               # the serving path, counted
+    t = time.perf_counter()
+    cli(run.main, ["export", "--model_dir", run_dir, "--output", art])
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    served = load_artifact(art)
+    capture_s = time.perf_counter() - t
+    meta = served.meta["batch_spec"]
+    padded = pad_points(batch, meta["points"]["shape"][2])
+    got = {k: v.cpu().numpy() for k, v in served(padded).items()}
+    torch.cuda.synchronize()
+    launches = K.rotated_iou.launches
+    check(launches >= 1, "the serving path launched no rotated_iou kernel")
+    program = torch.export.load(os.path.join(art, program_file("cuda")))
+    iou_nodes = sum(1 for n in program.graph.nodes if n.op == "call_function"
+                    and "rotated_iou" in str(n.target))
+    check(iou_nodes == 1, f"{iou_nodes} rotated-IoU op nodes in the program")
+    del program
+
+    want = {k: v.cpu().numpy() for k, v in infer(padded).items()}
+    check(np.array_equal(got["mask"], want["mask"]),
+          "the replay's mask differs from the eager request's")
+    keep = got["mask"][0]
+    eager_iou, eager_ds = match_box_sets(
+        got["corners3d"][0][keep], got["scores"][0][keep],
+        want["corners3d"][0][want["mask"][0]],
+        want["scores"][0][want["mask"][0]])
+    rec_iou, rec_ds = match_box_sets(
+        got["corners3d"][0][keep], got["scores"][0][keep],
+        io["pred_corners"], io["pred_scores"])
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    served(padded)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        served(padded)
+        torch.cuda.synchronize()
+    per_replay = iou_kernel_launches(prof.key_averages())
+    check(per_replay == 1, f"the profiler saw {per_replay} rotated-IoU "
+          f"launches in one replay")
+    replay_ms = event_ms(lambda: served(padded), reps=SERVING_REQUESTS)
+    eager_ms = event_ms(lambda: infer(padded), reps=SERVING_REQUESTS)
+    replay_prof = profile_calls(lambda: served(padded), 1)
+    eager_prof = profile_calls(lambda: infer(padded), 1)
+
+    # the NMS on this request's own input, as the program runs it and as
+    # the eager request does
+    from coalign_tpu_torch.postprocess import decode
+    nms_args, nms_fn = [], decode.nms_rotated
+
+    def keep_args(*args, **kw):
+        nms_args.append((args, kw))
+        return nms_fn(*args, **kw)
+
+    decode.nms_rotated = keep_args
+    try:
+        infer(padded)
+    finally:
+        decode.nms_rotated = nms_fn
+    (args, kw), = nms_args
+    # captured, the NMS takes its sync-free fixpoint by itself
+    nms_graph, sync_free = capture(lambda: nms_fn(*args, **kw))
+    nms_graph.replay()
+    chunked = nms_fn(*args, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(sync_free, chunked)),
+          "the captured sync-free NMS differs from the eager chunked one")
+    nms_replay_ms = queued_ms(nms_graph.replay, 20)
+    nms_eager_ms = device_ms(lambda: nms_fn(*args, **kw), 5)
+
+    # the kernel's launch in the replayed program, on this request's NMS
+    # input: as a graph node (CUDA events around queued replays of a graph
+    # of that one launch) and in the profiled replay, beside its bound
+    c = args[0].float().contiguous()
+    ops_ms = iou_ops(c, c) / PEAK_F32_OPS * 1e3
+    bytes_ms = (c.numel() * 4 * 2 + c.shape[0] * c.shape[1] ** 2 * 4) \
+        / PEAK_BYTES * 1e3
+    kernel = {"shape": list(c.shape),
+              "kernel_ms": graph_ms(lambda: K.rotated_iou(c, c), 100),
+              "profiler_ms": sum(
+                  e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "rotated_iou_kernel" in e.key) / 1e3,
+              "bound_ms": max(ops_ms, bytes_ms),
+              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+              "launches_per_request": per_replay}
+    kernel["share"] = kernel["bound_ms"] / kernel["kernel_ms"]
+
+    t = time.perf_counter()
+    cpu_served = load_artifact(art, device="cpu")
+    cpu = {k: v.numpy() for k, v in cpu_served(padded).items()}
+    cpu_s = time.perf_counter() - t
+    cpu_iou, cpu_ds = match_box_sets(
+        cpu["corners3d"][0][cpu["mask"][0]], cpu["scores"][0][cpu["mask"][0]],
+        io["pred_corners"], io["pred_scores"])
+    shutil.rmtree(work, ignore_errors=True)
+    return {
+        "batch": {k: v["shape"] for k, v in meta.items()},
+        "export_s": export_s, "load_and_capture_s": capture_s,
+        "cpu_load_and_request_s": cpu_s,
+        "rotated_iou_op_nodes": iou_nodes,
+        "rotated_iou_launches_in_warmup_and_capture": launches,
+        "launches_per_served_request": per_replay,
+        "boxes": int(keep.sum()),
+        "vs_eager": {"min_matched_iou": eager_iou, "max_score_diff": eager_ds},
+        "vs_recording": {"min_matched_iou": rec_iou,
+                         "max_score_diff": rec_ds},
+        "cpu_vs_recording": {"min_matched_iou": cpu_iou,
+                             "max_score_diff": cpu_ds},
+        "requests": SERVING_REQUESTS, "replay_ms": replay_ms,
+        "eager_ms": eager_ms,
+        "replay_profile": {k: replay_prof[k] for k in (
+            "call_wall_ms", "device_kernel_ms", "device_busy_share",
+            "device_kernel_launches", "top_kernels")},
+        "eager_profile": {k: eager_prof[k] for k in (
+            "call_wall_ms", "device_kernel_ms", "device_busy_share",
+            "device_kernel_launches")},
+        "nms_device_ms": {"replay_sync_free": nms_replay_ms,
+                          "eager_chunked": nms_eager_ms,
+                          "shape": list(args[0].shape)},
+        "kernel_in_replay": kernel, "card": card}
+
+
 def stage1_model(device, args=STAGE1_ARGS,
                  checkpoint: str = "fullscale_multiscale.pth"):
     """The stage-1 detector (``args``: STAGE1_ARGS at full width, seed 0)
@@ -1478,9 +1700,10 @@ def posegraph_check(card) -> dict:
             "abandoned": got["abandoned"].tolist(),
             "noisy_pairwise_err_m": noisy_err,
             "corrected_pairwise_err_m": corr_err,
-            "ms_b4": event_ms(lambda: align_poses_batch(*gpu, cfg=cfg), 20),
+            "ms_b4": event_ms(lambda: align_poses_batch(*gpu, cfg=cfg),
+                              LATE_REQUESTS),
             "ms_b1": event_ms(lambda: align_poses_batch(
-                *(x[:1] for x in gpu), cfg=cfg), 20)}
+                *(x[:1] for x in gpu), cfg=cfg), LATE_REQUESTS)}
     prof = profile_calls(lambda: align_poses_batch(*gpu, cfg=yaml_cfg))
     out["profile_b4"] = {k: prof[k] for k in (
         "call_wall_ms", "device_kernel_ms", "device_busy_share",
@@ -1582,13 +1805,14 @@ def same_box_sets(got: dict, want: dict) -> tuple:
     return counts, worst_iou, worst_ds
 
 
-def timed_requests(fn, batch, profile_reps: int = PROFILE_REQUESTS) -> dict:
-    """LATE_REQUESTS requests of ``fn`` on ``batch`` with CUDA events, and
+def timed_requests(fn, batch, profile_reps: int = PROFILE_REQUESTS,
+                   requests: int = LATE_REQUESTS) -> dict:
+    """``requests`` requests of ``fn`` on ``batch`` with CUDA events, and
     profile_calls' device ms, host ms, busy share and launches a request
     over ``profile_reps`` requests."""
-    ms = event_ms(lambda: fn(batch), reps=LATE_REQUESTS)
+    ms = event_ms(lambda: fn(batch), reps=requests)
     prof = profile_calls(lambda: fn(batch), profile_reps)
-    return {"requests": LATE_REQUESTS, "ms_per_frame": ms,
+    return {"requests": requests, "ms_per_frame": ms,
             "profiled_requests": profile_reps,
             "frames_per_s": 1000.0 / ms,
             "profile": {k: prof[k] for k in (
@@ -1609,7 +1833,7 @@ def late_check(card) -> tuple:
     the pairs the NMS reads, those of two candidate boxes (a slot that
     post_process dropped holds a zero box, a point, whose IoUs are
     rounding noise in both versions; ROADMAP fault 4); its other pairs are
-    counted. Then 20 timed requests and a profile. Returns (the phase's
+    counted. Then 10 timed requests and a profile. Returns (the phase's
     fields, the joint NMS's input, its candidate mask)."""
     from coalign_tpu_torch.data.batch import late_transforms
     from coalign_tpu_torch.inference import make_late_infer_fn
@@ -1666,7 +1890,7 @@ def early_check(card) -> dict:
     box on the card, and parity on an empty box set proves nothing.
     Checks: head maps on CUDA within 2e-3 of the CPU's (the full phase's
     bound), the same box set at match_box_sets' bounds, one IoU launch a
-    request. Then 20 timed requests and a profile."""
+    request. Then 10 timed requests and a profile."""
     from coalign_tpu_torch.data.batch import merge_agents
     from coalign_tpu_torch.inference import make_infer_fn, to_device
     from coalign_tpu_torch.models.zoo import build_model
@@ -1891,7 +2115,7 @@ def baseline_parity(name: str, state_dict: dict,
 def baselines_check(card) -> dict:
     """The baselines phase, one line a yaml of BASELINES: baseline_parity,
     then one request with its IoU-kernel launches counted (exactly 1) and
-    its peak memory, 20 timed requests and a profile. Returns each
+    its peak memory, 10 timed requests and a profile. Returns each
     config's launches a request."""
     state_dict = torch.load(os.path.join(GOLDEN, "fullscale_multiscale.pth"),
                             map_location="cpu", weights_only=True)
@@ -1944,7 +2168,7 @@ def baseline_recordings() -> dict:
 FUSIONS_REST = ("pointpillar_where2comm", "pointpillar_mash",
                 "pointpillar_v2vnet_robust", "deform")
 DEFORM_ARGS_FROM = "pointpillar_selfatt"
-REST_TRAIN_STEPS = (1, 3)                 # warm-up, timed
+REST_TRAIN_STEPS = (1, 2)                 # warm-up, timed
 
 
 def rest_config(name: str) -> tuple:
@@ -1963,7 +2187,7 @@ def fusions_rest_check(card) -> dict:
     where2comm_mask_check holds them,
     MASH's corr_vol and robust V2VNet's pose outputs with the maps, the
     same box set), one counted request (exactly 1 IoU launch), its peak
-    memory, 20 timed requests and a profile. Returns each entry's launches
+    memory, 10 timed requests and a profile. Returns each entry's launches
     a request."""
     state_dict = torch.load(os.path.join(GOLDEN, "fullscale_multiscale.pth"),
                             map_location="cpu", weights_only=True)
@@ -2548,6 +2772,13 @@ def disk_check(card: str, serve_ms: float, native_build: dict) -> dict:
       sweep  the noise_sweep command line at pose noise 0 and 0.4 and
              pose_graph_eval on a run directory of that detector (both
              reported);
+      vis_heter  run inference of that run directory over DISK_VIS_FRAMES
+             with --save_vis --save_vis_interval 2 (the PNGs decode with
+             data/image_io at the range's 800 x 2816 pixels) and --profile
+             (the trace names the IoU kernel); then of a copy whose yaml has
+             a heter block (every frame's box set the run's, at
+             match_box_sets' bounds, AP within 0.005 of the run's, the ego
+             a lidar agent in every frame's record);
       parity the tiny reference run (tiny_reference_run) through run
              inference on CUDA and on the CPU: the same box sets at
              match_box_sets' bounds, AP within 0.005.
@@ -2557,6 +2788,7 @@ def disk_check(card: str, serve_ms: float, native_build: dict) -> dict:
     from coalign_tpu_torch.config.yaml_utils import load_yaml, save_yaml
     from coalign_tpu_torch.data import SyntheticScenes, build_dataset
     from coalign_tpu_torch.data.fixtures import write_opv2v_fixture
+    from coalign_tpu_torch.data.image_io import read_png
     from coalign_tpu_torch.data.opv2v import precache_json
     from coalign_tpu_torch.inference import evaluate_dataset, make_infer_fn
     from coalign_tpu_torch.models.zoo import build_model
@@ -2751,6 +2983,60 @@ def disk_check(card: str, serve_ms: float, native_build: dict) -> dict:
           noise_sweep={f"{k[0]:g}": v for k, v in sweep.items()},
           pose_graph=pge, card=card)
 
+    # vis: run inference with --save_vis and --profile on the tree; heter:
+    # the same run directory with a yaml heter block
+    trace_dir = os.path.join(work, "trace")
+    (vis_res, _), vis_launches = counted_call(
+        cli, run.main, ["inference", "--model_dir", ref_dir, "--eval_frames",
+                        str(DISK_VIS_FRAMES), "--save_vis",
+                        "--save_vis_interval", "2", "--profile", trace_dir])
+    pngs = sorted(os.listdir(os.path.join(ref_dir, "vis")))
+    check(pngs == [f"bev_{i:05d}.png" for i in range(0, DISK_VIS_FRAMES, 2)],
+          f"--save_vis wrote {pngs}")
+    shapes = {tuple(read_png(os.path.join(ref_dir, "vis", f)).shape)
+              for f in pngs}
+    check(shapes == {(800, 2816, 3)}, f"vis PNGs of shapes {shapes}")
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        trace_iou = f.read().count("rotated_iou_kernel")
+    check(trace_iou >= vis_res["frames"], f"the trace names the kernel "
+          f"{trace_iou} times over {vis_res['frames']} frames")
+    heter = load_yaml(os.path.join(ref_dir, "config.yaml"))
+    heter["heter"] = {"lidar_ratio": 0.5, "ego_modality": "lidar",
+                      "seed": 303}
+    heter_dir = write_run_dir(os.path.join(work, "heter_run"), heter,
+                              fullscale)
+    (heter_res, _), heter_launches = counted_call(
+        cli, run.main, ["inference", "--model_dir", heter_dir, "--save_npy"])
+    # the markers ride along in the npy dump and change no box: every
+    # frame's box set is the run's (this seeded checkpoint's AP on the
+    # tree is about 0, so the boxes are what is compared)
+    check(heter_res["frames"] == res["frames"],
+          f"the heter run evaluated {heter_res['frames']} frames")
+    heter_boxes, heter_iou, heter_ds = 0, 1.0, 0.0
+    for i in range(heter_res["frames"]):
+        ours = npy_box_set(os.path.join(heter_dir, "npy"), i)
+        iou, ds = match_box_sets(*ours,
+                                 *npy_box_set(os.path.join(ref_dir, "npy"), i))
+        heter_boxes += len(ours[0])
+        heter_iou, heter_ds = min(heter_iou, iou), max(heter_ds, ds)
+    check(heter_boxes > 0, "the heter run kept no box")
+    check(all(abs(heter_res[k] - res[k]) <= 0.005
+              for k in ("ap30", "ap50", "ap70")),
+          f"the heter run's eval {heter_res} differs from the run's {res}")
+    records = [np.load(os.path.join(heter_dir, "npy",
+                                    f"{i:05d}_lidar_agent.npy")).tolist()
+               for i in range(heter_res["frames"])]
+    check(all(r[0] == 1 and 1 <= len(r) <= DISK_SCENES["num_agents"]
+              for r in records), f"heter records {records}")
+    phase("disk", step="vis_heter", vis_pngs=pngs,
+          vis_rotated_iou_launches=vis_launches,
+          trace_kernel_mentions=trace_iou,
+          trace_mb=os.path.getsize(os.path.join(trace_dir, "trace.json"))
+          / 2 ** 20, heter_eval=heter_res, heter_boxes=heter_boxes,
+          heter_min_matched_iou=heter_iou, heter_max_score_diff=heter_ds,
+          heter_rotated_iou_launches=heter_launches,
+          lidar_agent_records=records, card=card)
+
     # parity: the tiny reference run on CUDA and on the CPU
     _, tiny_cuda = tiny_reference_run(work, device=dev)
     tiny_cpu = shutil.copytree(tiny_cuda, tiny_cuda + "_cpu")
@@ -2812,7 +3098,7 @@ SECOND_CHECKPOINTED = ("SECOND", "SECOND_early")
 SECOND_SCENES = dict(num_agents=5, num_objects=20, points_per_object=800,
                      ground_points=60000, agent_spread=30.0, seed=1)
 SECOND_TRAIN = ("second_intermediate", "SECOND")
-SECOND_TRAIN_STEPS = (1, 3)               # warm-up, timed
+SECOND_TRAIN_STEPS = (1, 2)               # warm-up, timed
 # the recordings of tests/test_ckpt_import.py (generate_fixtures.py
 # SECOND_ARGS, which imports nothing of JAX but lives beside the tests)
 SECOND_REC_ARGS = {
@@ -2947,46 +3233,40 @@ def _map_errors(got: dict, want: dict) -> dict:
     return out
 
 
-def separated_threshold(scores: torch.Tensor, floor: float,
-                        least: int = 48, min_gap: float = 1e-3) -> tuple:
-    """A score threshold at which two devices' box sets can be compared:
-    the yaml's (``floor``) when it leaves fewer than 512 candidates a frame
-    (the top-K prefilter's size), ``least`` at least in all, and no score
-    within 1e-3 of it (the devices' scores differ by ~1e-5); else, of the
-    midpoints between consecutive distinct scores that do so, the one in
-    the widest gap (above or below the yaml's, as the baselines phase
-    lowers its threshold until 10 boxes remain), at least 1e-3 from any
-    score (``min_gap``: 1e-3 unless the caller measured the devices'
-    difference).
-    ``scores`` (F, K) are sigmoid scores. Returns (threshold, distance of
-    the nearest score to it)."""
+def separated_thresholds(scores: torch.Tensor, floor: float,
+                         least: int = 48, min_gap: float = 1e-3,
+                         most: int = 512) -> list:
+    """The score thresholds at which two devices' box sets can be
+    compared: the yaml's (``floor``) and the midpoints between consecutive
+    distinct scores that leave fewer than ``most`` candidates a frame (at
+    most the top-K prefilter's 512), ``least`` at least in all, and no
+    score within ``min_gap`` of them (1e-3 unless the caller measured the
+    devices' difference; they differ by ~1e-5). The yaml's comes first
+    when it qualifies, then the others by their margin, widest first
+    (above or below the yaml's, as the baselines phase lowers its
+    threshold until 10 boxes remain). ``scores`` (F, K) are sigmoid
+    scores. Returns [(threshold, distance of the nearest score to it),
+    ...]; raises when none qualifies."""
     per_frame = torch.sort(scores, dim=1).values
-    k = scores.shape[1]
-
-    def counts(t):            # (F, T) candidates above each threshold
-        return k - torch.searchsorted(
-            per_frame, t.expand(scores.shape[0], -1).contiguous(),
-            right=True)
-
-    def fits(t):
-        c = counts(t)
-        return (c.max(0).values < 512) & (c.sum(0) >= least)
-
-    t = torch.tensor([floor], dtype=scores.dtype)
-    margin = float((scores - floor).abs().min())
-    if bool(fits(t)[0]) and margin > min_gap:
-        return floor, margin
     values = torch.unique(scores)                     # ascending
-    mids = (values[:-1] + values[1:]) / 2
-    gaps = (values[1:] - values[:-1]) / 2
-    ok = fits(mids[None])
-    check(bool(ok.any()), "no score threshold leaves 1-511 candidates: "
-          f"above {floor} {counts(t)[:, 0].tolist()}, each frame's top "
-          f"{per_frame[:, -3:].tolist()}")
-    best = int(torch.argmax(torch.where(ok, gaps, -1.0)))
-    check(float(gaps[best]) > min_gap,
-          f"no separated score threshold: gap {float(gaps[best]):.2e}")
-    return float(mids[best]), float(gaps[best])
+    mids = torch.cat([torch.tensor([floor], dtype=scores.dtype),
+                      (values[:-1] + values[1:]) / 2])
+    gaps = torch.cat([(scores - floor).abs().min()[None],
+                      (values[1:] - values[:-1]) / 2])
+    counts = scores.shape[1] - torch.searchsorted(
+        per_frame, mids[None].expand(scores.shape[0], -1).contiguous(),
+        right=True)
+    fits = (counts.max(0).values < most) & (counts.sum(0) >= least)
+    ok = fits & (gaps > min_gap)
+    check(bool(ok.any()), f"no separated score threshold: of those that "
+          f"leave 1-{most - 1} candidates a frame ({int(fits.sum())}), the "
+          f"widest gap {float(torch.where(fits, gaps, 0.0).max()):.2e}, "
+          f"min_gap {min_gap:.2e}")
+    rank = torch.where(ok, gaps, -1.0)
+    rank[0] = torch.where(ok[0], float("inf"), -1.0)   # the yaml's first
+    order = torch.argsort(rank, descending=True)[:int(ok.sum())]
+    return [(floor if i == 0 else float(mids[i]), float(gaps[i]))
+            for i in order]
 
 
 def spread_cls_scores(models: dict, cls_preds: torch.Tensor) -> list:
@@ -3027,7 +3307,7 @@ def _second_pair(name: str, batch: dict, checkpoint: bool) -> dict:
     within 2e-3 of the map's largest magnitude (the baselines phase's
     2e-3, relative: the seeded maps but cls are ~1e-6, second_ssfa.pth's
     ~4e4), and the box sets of the yaml's infer fn at match_box_sets'
-    bounds, at separated_threshold's score (chosen on the card's scores;
+    bounds, at separated_thresholds' first (chosen on the card's scores;
     the checkpoint's at the yaml's). The CPU runs its
     infer fn once, its maps taken by a forward hook. Returns the fields,
     the CUDA infer fn and the CUDA model."""
@@ -3057,7 +3337,7 @@ def _second_pair(name: str, batch: dict, checkpoint: bool) -> dict:
     post = postprocess_cfg(y)
     threshold, margin = post["target_args"]["score_threshold"], None
     if not checkpoint:          # the checkpoint's scores are all 0 or 1
-        threshold, margin = separated_threshold(scores, threshold)
+        threshold, margin = separated_thresholds(scores, threshold)[0]
     post = {**post, "target_args": {**post["target_args"],
                                     "score_threshold": threshold}}
     infer, ref = (make_fusion_infer_fn(models[dev], anchors, post, kind,
@@ -3178,7 +3458,7 @@ def backbone3d_breakdown(model, batch: dict, reps: int = 3) -> dict:
 
 def second_check(card) -> dict:
     """The second phase, one line a yaml of SECOND_YAMLS: second_parity,
-    20 timed requests and a profile (timed_requests). Returns each yaml's
+    10 timed requests and a profile (timed_requests). Returns each yaml's
     IoU launches a request."""
     launches = {}
     for name in SECOND_YAMLS:
@@ -3337,7 +3617,7 @@ def second_step_parity() -> dict:
 # The seven OPV2V baselines' training, the DAIR-V2X and V2X-Sim readers, and
 # the PIXOR family.
 
-BASELINE_TRAIN_STEPS = (1, 3)             # warm-up, timed
+BASELINE_TRAIN_STEPS = (1, 2)             # warm-up, timed
 # train lines timed on cuDNN's heuristic algorithms, without autotuning:
 # V2VNet's float32 ConvGRU autotunes for ~130 s in its first step, which
 # the script's 1,200 s cannot spare beside the LSS phases (its step takes
@@ -3443,7 +3723,7 @@ DATASET_YAMLS = ("dairv2x/pointpillar_coalign", "v2xsim/pointpillar_coalign")
 DAIR_STAGE1_YAML = "dairv2x/pointpillar_uncertainty"
 DATASET_SCENES = dict(num_frames=4, num_objects=20, points_per_object=900,
                       ground_points=24000, agent_spread=30.0, seed=31)
-DATASET_REQUESTS = 20
+DATASET_REQUESTS = 10
 
 
 def dataset_params(work: str, rel: str) -> tuple:
@@ -3511,7 +3791,7 @@ def dataset_check(card, work: str, rel: str, fullscale: str) -> dict:
     ``fullscale`` (the flagship checkpoint, whose keys the yaml's model
     shares) through run inference from disk: 1 IoU launch a frame, frames/s
     of the whole command and of the eval loop; frame 0 CUDA against the
-    CPU (dataset_parity); 20 timed requests and a profile of the infer fn.
+    CPU (dataset_parity); 10 timed requests and a profile of the infer fn.
     Returns (the params, the IoU launches a CLI frame)."""
     from coalign_tpu_torch.config.yaml_utils import load_yaml
     from coalign_tpu_torch.data import build_dataset
@@ -3673,7 +3953,7 @@ PIXOR_YAML = "opv2v/pixor_intermediate"
 PIXOR_SCENES = dict(num_frames=4, num_agents=5, num_objects=20,
                     points_per_object=900, ground_points=24000,
                     agent_spread=30.0, seed=41)
-PIXOR_TRAIN_STEPS = (1, 3)                # warm-up, timed
+PIXOR_TRAIN_STEPS = (1, 2)                # warm-up, timed
 
 
 def pixor_setup(device, y: dict, checkpoint: bool = True) -> tuple:
@@ -3750,7 +4030,7 @@ def pixor_check(card) -> dict:
     largest and the same box set (match_box_sets' bounds) through
     make_infer_fn's dense branch, on a cls head spread as
     spread_cls_scores does when the checkpoint decodes too few boxes on
-    these scenes; 1 IoU launch a request; 20 timed requests and a profile;
+    these scenes; 1 IoU launch a request; 10 timed requests and a profile;
     pixor_recordings on the card; then the yaml's B = 4 train step from
     scratch (its loss and AdamW, the dense labels assigned in the step):
     ms, peak memory (B = 2 if B = 4 does not fit, said so). Returns the
@@ -3869,8 +4149,8 @@ LSS_SCENES = dict(num_frames=4, num_agents=5, num_objects=20,
                   focal=320.0)
 LSS_YAML = "lss_coalign_fusion"
 LSS_SINGLES = ("lss_single_efficientnet", "lss_single_resnet101")
-LSS_REQUESTS = 20
-LSS_TRAIN_STEPS = (3, 5)                  # warm-up, timed
+LSS_REQUESTS = 10
+LSS_TRAIN_STEPS = (3, 3)                  # warm-up, timed
 LSS_MAP_BOUND = 2e-3                      # of each map's largest magnitude
 # the tiny LSS of tests/test_torch_lss.py's sizes, for the step parity,
 # with lss_single_resnet101.yaml's camera encoder: EfficientNet-b0's expand
@@ -3893,7 +4173,7 @@ LSS_TINY_LOSS = {"core_method": "point_pillar_loss", "args": {
     k: v for k, v in E2E_LOSS.items() if k != "dir"}}
 # OPV2V's camera images are 600 x 800, resized to final_dim on the host
 CAMERA_DISK_HW = (600, 800)
-CAMERA_DISK_FRAMES = 4
+CAMERA_DISK_FRAMES = 2
 
 
 def lss_params(name: str) -> dict:
@@ -3965,16 +4245,69 @@ class _FixedMaps(torch.nn.Module):
         return self.maps
 
 
+def spread_lss_context(models: dict, batch: dict) -> float:
+    """Scale the camera encoder's context head (``image_head``) of both
+    ``models`` ({device: model}) by the power of two that brings the CUDA
+    model's context features on ``batch`` to a standard deviation near 1.
+    A seeded EfficientNet's squeeze gates and swishes shrink its features
+    block by block, so its context is ~1e-7 and the head maps ~1e-8 apart:
+    rescaled at the cls head alone (spread_cls_scores), the devices'
+    rounding of those maps moved the scores by up to ~1e-5, too near the
+    gaps between them for a separated threshold (ROADMAP fault 16). The
+    splat is linear in the context, so the BEV trunk then runs on features
+    of order 1 and its maps spread as a trained model's do. A power of two
+    scales the weights exactly, the same on both devices. Returns the
+    scale."""
+    from coalign_tpu_torch.inference import to_device
+    seen = []
+    head = models["cuda"].camencode.image_head
+    hook = head.register_forward_hook(lambda m, a, out: seen.append(out))
+    try:
+        with torch.no_grad():
+            models["cuda"](to_device(batch, "cuda"))
+    finally:
+        hook.remove()
+    scale = 2.0 ** round(-float(torch.log2(seen[0].float().std())))
+    with torch.no_grad():
+        for model in models.values():
+            model.camencode.image_head.weight.mul_(scale)
+            model.camencode.image_head.bias.mul_(scale)
+    return scale
+
+
+LSS_BOX_SCALE = 0.15
+
+
+def shrink_lss_boxes(models: dict) -> float:
+    """Shift the reg head's size deltas (h, w, l of each anchor) of both
+    ``models`` by log(LSS_BOX_SCALE), so that the decoded boxes are that
+    fraction of their anchors (0.59 x 0.24 m). A seeded model's boxes are
+    its anchors (reg ~0), 3.9 m long at 0.8 m strides: the NMS keeps about
+    one of each blob of candidates, so a threshold that keeps enough boxes
+    lay deep in the scores, where their gaps narrow (ROADMAP fault 16).
+    Shrunk, the NMS keeps about one box a cell, and a threshold near the
+    top of the scores, where they lie far apart, keeps enough. Returns the
+    shift."""
+    shift = float(np.log(LSS_BOX_SCALE))
+    with torch.no_grad():
+        for model in models.values():
+            bias = model.reg_head.bias.view(-1, 7)      # (anchors, 7)
+            bias[:, 3:6] += shift
+    return shift
+
+
 def lss_parity(name: str, batch: dict) -> tuple:
     """The yaml ``name``'s LSS model (seed 0) on ``batch``, CUDA against
     the CPU: every map within LSS_MAP_BOUND of its largest magnitude, and
     the same box set (match_box_sets' bounds) through the yaml's fusion
     protocol (make_fusion_infer_fn; late for the single-agent yamls). A
     seeded LSS's maps are ~1e-8 (EfficientNet's squeeze gates and swishes
-    shrink its features block by block), so every score ties at 0.5: the
-    cls head is rescaled as the SECOND phase's (spread_cls_scores) and the
-    boxes compared at separated_threshold's score, at least
-    BASELINE_MIN_BOXES of them on the CPU. Returns (the fields, the CUDA
+    shrink its features block by block), so every score ties at 0.5: its
+    context head is scaled to features of order 1 (spread_lss_context),
+    its boxes shrunk (shrink_lss_boxes), then the cls head rescaled as the
+    SECOND phase's (spread_cls_scores), and the boxes compared at the
+    first threshold of separated_thresholds (the yaml's, else the widest
+    margin first) that keeps BASELINE_MIN_BOXES, on both devices. Returns (the fields, the CUDA
     infer fn at that threshold, the CUDA model)."""
     from coalign_tpu_torch.inference import make_fusion_infer_fn, to_device
     from coalign_tpu_torch.models.zoo import build_model
@@ -3988,6 +4321,8 @@ def lss_parity(name: str, batch: dict) -> tuple:
     anchors = generate_anchor_box(post["anchor_args"])
     models = {dev: build_model(params["model"], device=dev, seed=0)
               for dev in ("cuda", "cpu")}
+    context_scale = spread_lss_context(models, batch)
+    size_shift = shrink_lss_boxes(models)
     with torch.no_grad():
         shift = spread_cls_scores(
             models, models["cuda"](to_device(batch, "cuda"))["cls_preds"])
@@ -4008,19 +4343,24 @@ def lss_parity(name: str, batch: dict) -> tuple:
     cpu_scores = torch.sigmoid(cpu_maps["cls_preds"].permute(0, 2, 3, 1)
                                .flatten(1))
     score_diff = float((scores - cpu_scores).abs().max())
-    # the seeded boxes are the anchors (reg ~0), which the NMS thins: more
-    # candidates until BASELINE_MIN_BOXES survive it, at a threshold ten
-    # times the devices' largest score difference from every score
-    for least in (48, 128, 256, 480):
-        threshold, margin = separated_threshold(
-            scores, float(post["target_args"]["score_threshold"]), least,
-            min_gap=max(10 * score_diff, 1e-6))
+    # of the thresholds ten times the devices' largest score difference
+    # from every score, with fewer candidates a frame than the post-process
+    # keeps (max_num, so that its cap by rank never bites), the first at
+    # which BASELINE_MIN_BOXES survive the NMS (counted on the card's maps,
+    # then held on the CPU's)
+    min_gap = max(10 * score_diff, 1e-6)
+    candidates = separated_thresholds(
+        scores, float(post["target_args"]["score_threshold"]),
+        BASELINE_MIN_BOXES, min_gap, most=int(post.get("max_num", 100)))
+    for tried, (threshold, margin) in enumerate(candidates, 1):
         cfg = {**post, "target_args": {**post["target_args"],
                                        "score_threshold": threshold}}
-        ref = make_fusion_infer_fn(_FixedMaps(cpu_maps), anchors, cfg,
-                                   fusion, device="cpu")(batch)
-        if int(ref["mask"].sum()) >= BASELINE_MIN_BOXES:
+        kept = make_fusion_infer_fn(_FixedMaps(cuda_maps), anchors, cfg,
+                                    fusion, device="cuda")(batch)["mask"]
+        if int(kept.sum()) >= BASELINE_MIN_BOXES:
             break
+    ref = make_fusion_infer_fn(_FixedMaps(cpu_maps), anchors, cfg, fusion,
+                               device="cpu")(batch)
     check(int(ref["mask"].sum()) >= BASELINE_MIN_BOXES,
           f"{name}: {int(ref['mask'].sum())} boxes at score {threshold}")
     infer = make_fusion_infer_fn(models["cuda"], anchors, cfg, fusion)
@@ -4028,7 +4368,9 @@ def lss_parity(name: str, batch: dict) -> tuple:
     return ({"yaml": name, "core_method": params["model"]["core_method"],
              "fusion": fusion, "cpu_forward_s": cpu_s,
              "score_threshold": threshold, "threshold_margin": margin,
-             "candidates_at_least": least,
+             "min_gap": min_gap, "margin_over_min_gap": margin / min_gap,
+             "context_scale": context_scale, "box_size_shift": size_shift,
+             "thresholds_tried": tried,
              "max_score_diff_maps": score_diff,
              "yaml_score_threshold":
                  float(post["target_args"]["score_threshold"]),
@@ -4208,7 +4550,7 @@ def bf16_check(card, lss: tuple, tiny) -> dict:
     """The bf16 phase: the full-width flagship (fullscale_multiscale.pth, the
     recorded frame) and the LSS request (``lss``: its infer fn, model and
     batch), each in float32 and under set_compute_dtype(torch.bfloat16):
-    ms a request (CUDA events, 20 requests) in each, the mean relative
+    ms a request (CUDA events, 10 requests) in each, the mean relative
     distance of cls_preds (mean |bf16 - f32| / mean |f32|), held below
     tests/test_bf16.py's 0.15, every map finite and the heads' outputs
     float32; the IoU launches of a bf16 request and its profile by stage;
@@ -4242,7 +4584,7 @@ def bf16_check(card, lss: tuple, tiny) -> dict:
                 key = "bf16" if policy else "float32"
                 with torch.no_grad():
                     maps[key] = m(to_device(b, "cuda"))
-                ms[key] = event_ms(lambda: fn(b), reps=20)
+                ms[key] = event_ms(lambda: fn(b), reps=LATE_REQUESTS)
             _, launches[name] = counted_call(fn, b)
             prof = profile_calls(lambda: fn(b))
             set_compute_dtype(None)
@@ -4289,12 +4631,14 @@ def bf16_check(card, lss: tuple, tiny) -> dict:
 FPV_YAMLS = ("fpvrcnn", "fvoxelrcnn")
 FPV_MAP_BOUND = 2e-3                      # of each map's largest magnitude
 FPV_MIN_BOXES = 10
-FPV_TRAIN_STEPS = (1, 3)                  # warm-up, timed
+FPV_TRAIN_STEPS = (1, 2)                  # warm-up, timed
 # requests in each model's profile: an FPV-RCNN request launches ~32,600
 # kernels (FPS's 4,095 steps), and torch.profiler took 131 s to record and
 # read 5 of them, which the script's 1,200 s cannot spare (1,153 s with 5,
 # 1,156 s with 2 on a slow host)
 FPV_PROFILE_REQUESTS = {"fpvrcnn": 1, "fvoxelrcnn": PROFILE_REQUESTS}
+# timed requests of each model: an FPV-RCNN request takes ~0.7 s
+FPV_REQUESTS = {"fpvrcnn": 5, "fvoxelrcnn": LATE_REQUESTS}
 FPV_STAGE1_PREFILTER = 256                # models/fpvrcnn.py's top-K
 # stage-1 candidates over the 5 agent frames, at least
 FPV_STAGE1_CANDIDATES = 300
@@ -4453,7 +4797,7 @@ def fpv_parity(name: str, batch: dict) -> tuple:
 
 def fpv_request(card, name: str, batch: dict) -> tuple:
     """fpv_parity, then one counted request (2 IoU launches: the stage-1
-    NMS of the 5 agent frames, the refined NMS), its peak memory, 20 timed
+    NMS of the 5 agent frames, the refined NMS), its peak memory, 10 timed
     requests and a profile over FPV_PROFILE_REQUESTS of them
     (timed_requests). Returns (the fields, the
     launches, the NMS inputs of the counted request, the CUDA model)."""
@@ -4467,7 +4811,8 @@ def fpv_request(card, name: str, batch: dict) -> tuple:
     check(launches == 2, f"{launches} IoU launches in a {name} request")
     fields.update(rotated_iou_launches=launches,
                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                  **timed_requests(infer, batch, FPV_PROFILE_REQUESTS[name]),
+                  **timed_requests(infer, batch, FPV_PROFILE_REQUESTS[name],
+                                   FPV_REQUESTS[name]),
                   card=card)
     return fields, launches, captured, model
 
@@ -4731,6 +5076,10 @@ def main() -> int:
           agents=n_agents, canvas=[200, 704], card=card)
     phase("profile", **profile_calls(lambda: infer(batch)), card=card)
 
+    # the flagship as a deployment artifact, replayed as a CUDA graph
+    serving = serving_check(card, infer, batch, io)
+    phase("serving", **serving)
+
     # 8-10. CoAlign's pose correction: stage-1, the pose graph, the request
     fields, stage1, stage1_nms_input = stage1_check(card)
     phase("stage1", **fields)
@@ -4886,6 +5235,7 @@ def main() -> int:
     timed["late"] = time_shape(late_nms_input, late_candidates[:, :, None]
                                & late_candidates[:, None, :])
     timed.update(fpv_shapes(fpv_nms_inputs))
+    timed["serving"] = serving["kernel_in_replay"]
     # per call with CUDA events (host launch overhead included)
     kernel_call_ms = event_ms(lambda: K.rotated_iou(c, c), reps=200)
     plain_call_ms = event_ms(lambda: rotated_iou_plain(c, c), reps=20)
@@ -4899,6 +5249,7 @@ def main() -> int:
         "shape": main["shape"],
         "launches": launches,
         "launches_per_frame": launches,
+        "launches_per_serving_request": serving["launches_per_served_request"],
         "launches_per_train_step": train["launches_per_train_step"],
         "launches_per_eval_batch": train["launches_per_eval_batch"],
         "launches_per_coalign_request":

@@ -292,15 +292,21 @@ def evaluate(infer, frames, batch_hook=None) -> dict:
     return result
 
 
-def dump_detections_npy(dets: dict, batch: dict, out_dir: str, idx: int):
+def dump_detections_npy(dets: dict, batch: dict, out_dir: str, idx: int,
+                        cav_box=None, lidar_agent_record=None):
     """Save one batch's detections (corners3d, scores, mask) and its padded
     gt (gt_boxes, gt_mask) as ``<idx:05d>_<name>.npy`` files under
     ``out_dir``, for offline visualization (ref inference_utils.py:176;
-    coalign_tpu/inference.py:188)."""
+    coalign_tpu/inference.py:188); for a heterogeneous run also the per-CAV
+    marker boxes (``cav_box``) and the lidar-agent record (ref
+    tools/inference.py:195)."""
     os.makedirs(out_dir, exist_ok=True)
     arrays = {"pred_corners": dets["corners3d"], "pred_scores": dets["scores"],
               "pred_mask": dets["mask"], "gt_boxes": batch["gt_boxes"],
               "gt_mask": batch["gt_mask"]}
+    if cav_box is not None:
+        arrays = {"cav_box": cav_box, "lidar_agent": lidar_agent_record,
+                  **arrays}
     for name, value in arrays.items():
         if isinstance(value, torch.Tensor):
             value = value.cpu().numpy()
@@ -309,10 +315,29 @@ def dump_detections_npy(dets: dict, batch: dict, out_dir: str, idx: int):
     return out_dir
 
 
+def save_vis(dets: dict, batch: dict, lidar_range, path: str,
+             left_hand: bool = False) -> str:
+    """The BEV rendering of a batch's first frame (coalign_tpu/inference.py:
+    283-297): its kept detections, its gt and the ego agent's points (none
+    for a camera batch), written as a PNG at ``path``."""
+    from coalign_tpu_torch.visualization import visualize
+
+    mask = np.asarray(dets["mask"][0])
+    gt = np.asarray(batch["gt_boxes"][0])[np.asarray(batch["gt_mask"][0])]
+    pts = (np.asarray(batch["points"][0, 0])[np.asarray(
+        batch["point_mask"][0, 0])] if "points" in batch
+        else np.zeros((0, 3)))
+    return visualize(np.asarray(dets["corners3d"][0])[mask],
+                     boxes_to_corners_3d(gt, "hwl"), pts, lidar_range, path,
+                     method="bev", left_hand=left_hand)
+
+
 def evaluate_dataset(model, batcher, dataset, anchors, postprocess_cfg, *,
                      batch_size: int = 1, max_frames: int | None = None,
                      fusion_method: str = "intermediate",
-                     npy_dir: str | None = None, batch_hook=None,
+                     npy_dir: str | None = None, vis_dir: str | None = None,
+                     vis_interval: int = 40, lidar_range=None,
+                     batch_hook=None, left_hand: bool = False,
                      heter_selector=None, device=None) -> dict:
     """The eval protocol over a dataset (coalign_tpu/inference.py:215-306;
     ref tools/inference.py:40-227): ``batcher``'s batches of ``dataset`` in
@@ -328,12 +353,12 @@ def evaluate_dataset(model, batcher, dataset, anchors, postprocess_cfg, *,
     batch before inference (the offline CoAlign correction of
     tools/run.py). ``max_frames`` stops after the batch that reaches it.
     With ``npy_dir`` each batch's detections and gt are saved there
-    (dump_detections_npy), numbered by batch. A ``heter_selector`` (the
-    JAX package's heterogeneous-agent AP sets, coalign_tpu/inference.py:
-    265-273) is refused: it waits for utils/heter.py (ROADMAP item 9)."""
-    if heter_selector is not None:
-        raise NotImplementedError("heter_selector waits for utils/heter.py's "
-                                  "agent selector (ROADMAP item 9)")
+    (dump_detections_npy), numbered by batch; with a ``heter_selector``
+    (utils/heter.AgentSelector) also its first frame's per-CAV marker boxes
+    and each agent's modality (get_cav_box). With ``vis_dir`` every
+    ``vis_interval // batch_size``-th batch's first frame is rendered there
+    as ``bev_<batch>.png`` (save_vis) over ``lidar_range`` (the gt range by
+    default), its y flipped when ``left_hand``."""
     infer = make_fusion_infer_fn(model, anchors, postprocess_cfg,
                                  fusion_method, device=device)
     max_num = int(postprocess_cfg.get("max_num", 100))
@@ -344,15 +369,31 @@ def evaluate_dataset(model, batcher, dataset, anchors, postprocess_cfg, *,
         batches = itertools.islice(batches, -(-max_frames // batch_size))
     comm_bytes = []
     batch_ids = itertools.count()
+    vis_every = max(vis_interval // batch_size, 1)
 
     def infer_and_record(batch: dict) -> dict:
+        idx = next(batch_ids)
         dets = infer(batch)
         rate = dets.get("comm_rate")
         comm_bytes.append(frame_comm_bytes(
             fusion_method, batch, model=model, max_num=max_num,
             comm_rate=None if rate is None else float(rate)))
         if npy_dir:
-            dump_detections_npy(dets, batch, npy_dir, next(batch_ids))
+            cav_box = record = None
+            if heter_selector is not None:
+                from coalign_tpu_torch.utils.heter import get_cav_box
+                amask = np.asarray(batch["agent_mask"][0])
+                cav_box, record = get_cav_box(
+                    np.asarray(batch["lidar_pose"][0]), amask,
+                    heter_selector.select(int(amask.sum())))
+            dump_detections_npy(dets, batch, npy_dir, idx, cav_box=cav_box,
+                                lidar_agent_record=record)
+        if vis_dir and idx % vis_every == 0:
+            os.makedirs(vis_dir, exist_ok=True)
+            save_vis({k: v.cpu().numpy() for k, v in dets.items()
+                      if k in ("corners3d", "mask")}, batch,
+                     lidar_range or postprocess_cfg["gt_range"],
+                     os.path.join(vis_dir, f"bev_{idx:05d}.png"), left_hand)
         return dets
 
     result = evaluate(infer_and_record,

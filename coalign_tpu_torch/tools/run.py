@@ -1,5 +1,5 @@
-"""Config-driven CLI: train, inference, precalc and config_generate from a
-hypes yaml.
+"""Config-driven CLI: train, inference, export, precalc and config_generate
+from a hypes yaml.
 
 Port of coalign_tpu/tools/run.py (ref opencood/tools/train.py:32-194,
 inference.py:40-227, pose_graph_pre_calc.py, config_generate.py): one entry
@@ -12,7 +12,10 @@ Usage:
   python -m coalign_tpu_torch.tools.run train -y <hypes.yaml> \\
       [--model_dir out] [--root_dir <dataset>] [--epochs N]
   python -m coalign_tpu_torch.tools.run inference --model_dir out \\
-      [--fusion_method intermediate] [--save_npy] [--eval_frames N]
+      [--fusion_method intermediate] [--save_npy] [--eval_frames N] \\
+      [--save_vis [--save_vis_interval N]] [--profile <trace dir>]
+  python -m coalign_tpu_torch.tools.run export --model_dir out \\
+      [--output <artifact dir>] [--platforms cuda,cpu]
   python -m coalign_tpu_torch.tools.run precalc -y <precalc.yaml>
   python -m coalign_tpu_torch.tools.run config_generate -y <hypes.yaml>
 
@@ -47,28 +50,7 @@ from coalign_tpu_torch.runtime import resolve_device
 from coalign_tpu_torch.train import (build_optimizer, inference_checkpoint,
                                      latest_checkpoint, load_checkpoint,
                                      save_checkpoint, train_epochs)
-
-# options of the JAX package's CLI that the port does not have yet, each
-# with the ROADMAP item that brings it
-_REFUSED_FLAGS = {
-    "save_vis": "visualization/ (ROADMAP item 9)",
-    "profile": "utils/profiling.py's device trace (ROADMAP item 9)",
-}
-# yaml blocks of the JAX package's inference that the port does not read
-# yet: evaluating such a config would give another AP without a word
-_REFUSED_BLOCKS = {
-    "heter": "utils/heter.py's agent selector (ROADMAP item 9)",
-}
-
-
-def _refuse_blocks(params: dict) -> dict:
-    """``params`` unchanged, or NotImplementedError for a block that the
-    port's inference does not read (_REFUSED_BLOCKS)."""
-    for block, what in _REFUSED_BLOCKS.items():
-        if params.get(block):
-            raise NotImplementedError(f"the yaml's {block!r} block waits "
-                                      f"for {what}")
-    return params
+from coalign_tpu_torch.utils.tb_logging import make_tb_callback
 
 
 def build_all(params: dict, train: bool = True, device=None):
@@ -146,7 +128,8 @@ def _fusion_method(params: dict) -> str:
 def cmd_train(opt):
     """Train the yaml's model on its dataset (``--root_dir`` overrides the
     root), resuming from the run directory's numerically latest
-    ``net_epoch{N}.pth`` at epoch N; save ``net_epoch{N+epochs}.pth``, then
+    ``net_epoch{N}.pth`` at epoch N; log the metrics to TensorBoard under
+    ``tb/`` (utils/tb_logging.py); save ``net_epoch{N+epochs}.pth``, then
     evaluate with the config's fusion protocol. Returns (model, eval
     result)."""
     dev = resolve_device(opt.device)
@@ -187,12 +170,18 @@ def cmd_train(opt):
                                     train=False)
 
     epochs = opt.epochs or tp["epoches"]
+    # TensorBoard scalars beside the checkpoints (ref criterion.logging ->
+    # the tensorboardX writer of tools/train.py); a no-op where no writer
+    # imports
+    log, tb_close = make_tb_callback(os.path.join(model_dir, "tb"),
+                                     inner=lambda m: print(json.dumps(m)))
     train_epochs(model, loss_fn, spec, optimizer, scheduler, batcher, base,
                  epochs=epochs, batch_size=tp["batch_size"],
                  ckpt_dir=model_dir, save_freq=tp.get("save_freq", 0),
-                 callback=lambda m: print(json.dumps(m)),
-                 val_dataset=val_base, eval_freq=tp.get("eval_freq", 0),
-                 start_epoch=start_epoch, device=dev)
+                 callback=log, val_dataset=val_base,
+                 eval_freq=tp.get("eval_freq", 0), start_epoch=start_epoch,
+                 device=dev)
+    tb_close()
     path = save_checkpoint(model, model_dir, start_epoch + epochs)
     print(json.dumps({"saved": path}))
 
@@ -272,28 +261,90 @@ def _box_align_hook(params: dict, device):
     return hook
 
 
+def left_hand(params: dict) -> bool:
+    """Whether saved renders flip y: the CARLA-derived datasets (OPV2V,
+    V2XSet) are left-handed (ref tools/inference.py:80 keys on the test_dir
+    path; coalign_tpu/tools/run.py:223-229); DAIR-V2X and V2X-Sim are
+    right-handed."""
+    dirs = " ".join(str(params.get(k, "")) for k in
+                    ("validate_dir", "root_dir", "test_dir"))
+    return ("OPV2V" in dirs.upper()) or ("V2XSET" in dirs.upper())
+
+
+def _heter_selector(params: dict):
+    """The AgentSelector of a config's ``heter`` block (ref heter_utils.py;
+    coalign_tpu/tools/run.py:257-268), or None: with it, the npy dump holds
+    each frame's per-CAV marker boxes and each agent's modality."""
+    heter = params.get("heter")
+    if not heter:
+        return None
+    from coalign_tpu_torch.utils.heter import AgentSelector
+    return AgentSelector(
+        lidar_ratio=float(heter.get("lidar_ratio", 0.5)),
+        ego_modality=heter.get("ego_modality", "lidar"),
+        seed=int(heter.get("seed", 303)))
+
+
 def cmd_inference(opt):
     """Evaluate a run directory's checkpoint on its dataset; the result is
-    printed and saved as ``eval_<fusion>.yaml`` in the run directory, and
-    with ``--save_npy`` each frame's detections and gt under ``npy/``. A
-    config with a ``heter`` block is refused (_REFUSED_BLOCKS)."""
-    params, base, batcher, model, spec, dev = _load_model_dir(
-        opt, params_hook=_refuse_blocks)
+    printed and saved as ``eval_<fusion>.yaml`` in the run directory. With
+    ``--save_npy`` each frame's detections and gt go under ``npy/`` (with a
+    ``heter`` block also the per-CAV marker boxes and modalities), with
+    ``--save_vis`` every ``--save_vis_interval``-th frame's BEV rendering
+    under ``vis/``, and with ``--profile <dir>`` a torch.profiler trace of
+    the eval loop to ``<dir>/trace.json`` (utils/profiling.device_trace)."""
+    import contextlib
+
+    params, base, batcher, model, spec, dev = _load_model_dir(opt)
     if not opt.fusion_method:
         # a late or early run is decoded with its own protocol
         opt.fusion_method = _fusion_method(params)
         print(json.dumps({"fusion_method": opt.fusion_method}))
+    trace = contextlib.nullcontext()
+    if opt.profile:
+        from coalign_tpu_torch.utils.profiling import device_trace
+        trace = device_trace(opt.profile)
     npy_dir = os.path.join(opt.model_dir, "npy") if opt.save_npy else None
-    res = evaluate_dataset(model, batcher, base, _anchors(spec),
-                           postprocess_cfg(params),
-                           fusion_method=opt.fusion_method,
-                           max_frames=opt.eval_frames, npy_dir=npy_dir,
-                           batch_hook=_box_align_hook(params, dev),
-                           device=dev)
+    vis_dir = os.path.join(opt.model_dir, "vis") if opt.save_vis else None
+    with trace:
+        res = evaluate_dataset(model, batcher, base, _anchors(spec),
+                               postprocess_cfg(params),
+                               fusion_method=opt.fusion_method,
+                               max_frames=opt.eval_frames, npy_dir=npy_dir,
+                               vis_dir=vis_dir,
+                               vis_interval=opt.save_vis_interval,
+                               batch_hook=_box_align_hook(params, dev),
+                               left_hand=left_hand(params),
+                               heter_selector=_heter_selector(params),
+                               device=dev)
     print(json.dumps({"eval": res}))
     save_yaml(res, os.path.join(opt.model_dir,
                                 f"eval_{opt.fusion_method}.yaml"))
     return res
+
+
+def cmd_export(opt):
+    """Write a serving artifact (serving.export_inference: the frame
+    program traced with torch.export for each of ``--platforms``, the
+    checkpoint's params.npz and the batch contract) for the run directory's
+    checkpoint, to ``--output`` (``<model_dir>/serving_artifact`` by
+    default). Exported programs are fixed-shape: the shapes are those of
+    one assembled batch of the run's dataset. A late or no-fusion config is
+    refused: its joint NMS is make_late_infer_fn's, not the frame
+    program. Returns the artifact directory."""
+    from coalign_tpu_torch.serving import export_inference
+
+    params, base, batcher, model, spec, dev = _load_model_dir(opt)
+    if _fusion_method(params) == "late":
+        raise NotImplementedError(
+            "export serves make_infer_fn's frame program; a late-fusion "
+            "config's requests go through make_late_infer_fn")
+    out = opt.output or os.path.join(opt.model_dir, "serving_artifact")
+    platforms = tuple((opt.platforms or "cuda,cpu").split(","))
+    export_inference(model, batcher.assemble([base[0]]), _anchors(spec),
+                     postprocess_cfg(params), out, platforms=platforms)
+    print(json.dumps({"artifact": out, "platforms": list(platforms)}))
+    return out
 
 
 def cmd_precalc(opt):
@@ -389,24 +440,25 @@ def main(argv=None):
                        help="save each frame's detections and gt under "
                             "<model_dir>/npy (ref inference_utils.py:176)")
         s.add_argument("--save_vis", action="store_true",
-                       help="not ported yet (ROADMAP item 9)")
+                       help="save BEV detection renderings under "
+                            "<model_dir>/vis every save_vis_interval "
+                            "frames (ref inference.py:199-223)")
+        s.add_argument("--save_vis_interval", type=int, default=40)
         s.add_argument("--profile", default=None,
-                       help="not ported yet (ROADMAP item 9)")
+                       help="write a torch.profiler trace of the eval loop "
+                            "to <dir>/trace.json")
+        s.add_argument("--platforms", default=None,
+                       help="export's devices, comma separated; default "
+                            "'cuda,cpu'")
         s.add_argument("--bf16", action="store_true",
                        help="bfloat16 compute policy for the convs and "
                             "linears (ref train.py --half; parameters stay "
                             "float32)")
     opt = p.parse_args(argv)
-    if opt.cmd == "export":
-        raise NotImplementedError(
-            "export waits for the port of serving.py (ROADMAP item 9)")
-    for flag, what in _REFUSED_FLAGS.items():
-        if getattr(opt, flag):
-            raise NotImplementedError(f"--{flag} waits for {what}")
     opt.device = resolve_device(opt.device)
     _apply_bf16(opt)
     return {"train": cmd_train, "inference": cmd_inference,
-            "precalc": cmd_precalc,
+            "export": cmd_export, "precalc": cmd_precalc,
             "config_generate": cmd_config_generate}[opt.cmd](opt)
 
 

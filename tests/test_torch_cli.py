@@ -16,9 +16,14 @@ tests/test_pose_graph_eval.py::test_pose_graph_eval_cli
     other maps;
   * lss_coalign_fusion.yaml trains on a camera tree and its run directory
     infers, also under --bf16;
-  * the refused subcommand, flags, datasets and a config's ``heter`` block
-    raise and name their ROADMAP item; without --device and without a GPU
-    every command raises;
+  * export writes an artifact whose reloaded program gives the run's
+    detections; inference's --profile writes a trace and --save_vis PNGs
+    that the port's decoder reads; a config's ``heter`` block evaluates
+    as the JAX package's cmd_inference does (the same result dict, AP
+    within 0.005, and the same per-CAV marker boxes and modality records
+    in the npy dump);
+  * a JAX orbax run directory and one without checkpoints raise; without
+    --device and without a GPU every command raises;
 """
 
 import os
@@ -214,13 +219,6 @@ def test_pose_graph_eval_cli(tmp_path):
 
 def test_refused_commands_raise(trained, tmp_path, monkeypatch):
     _, cfg, model_dir, _ = trained
-    for argv, item in ((["export", "--model_dir", model_dir], "item 9"),
-                       (["inference", "--model_dir", model_dir,
-                         "--save_vis"], "item 9"),
-                       (["inference", "--model_dir", model_dir,
-                         "--profile", "trace"], "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            run.main(argv + CPU)
     # a directory of the JAX package's orbax checkpoints, and none at all
     (tmp_path / "orbax" / "step_10").mkdir(parents=True)
     shutil.copy(os.path.join(model_dir, "config.yaml"), tmp_path / "orbax")
@@ -245,25 +243,101 @@ def test_refused_commands_raise(trained, tmp_path, monkeypatch):
             main(argv)
 
 
-def test_heter_block_is_refused(trained, tmp_path):
-    """A run directory whose config has a ``heter`` block (the JAX
-    package's heterogeneous AP sets, coalign_tpu/tools/run.py:257-268) is
-    refused, naming ROADMAP item 9, and so is evaluate_dataset's
-    ``heter_selector``, rather than evaluated to another AP without a
-    word."""
-    from coalign_tpu_torch.inference import evaluate_dataset
+@pytest.fixture(scope="module")
+def reference_run(tmp_path_factory):
+    """chip_smoke.tiny_reference_run's run directory: the tiny flagship
+    with coalign_multiscale.pth, whose frames have detections."""
+    from chip_smoke import tiny_reference_run
+    _, run_dir = tiny_reference_run(str(tmp_path_factory.mktemp("ref")),
+                                    device="cpu")
+    return run_dir
+
+
+def test_export_writes_a_loadable_artifact(reference_run, tmp_path):
+    """run export of a reference-style run directory (platforms cpu): the
+    reloaded program gives make_infer_fn's detections of the run's
+    checkpoint on the run's first batch (atol 1e-6, as
+    tests/test_torch_serving.py)."""
+    from types import SimpleNamespace
+
+    from coalign_tpu_torch.serving import load_artifact
+    model_dir = reference_run
+    out = str(tmp_path / "artifact")
+    assert run.main(["export", "--model_dir", model_dir, "--output", out,
+                     "--platforms", "cpu", *CPU]) == out
+    params, base, batcher, model, spec, _ = run._load_model_dir(
+        SimpleNamespace(model_dir=model_dir, root_dir=None, device="cpu"))
+    batch = batcher.assemble([base[0]])
+    want = make_infer_fn(model, run._anchors(spec), run.postprocess_cfg(
+        params), device="cpu")(batch)
+    got = load_artifact(out, device="cpu")(batch)
+    assert int(want["mask"].sum()) > 0
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   atol=1e-6, err_msg=k)
+
+
+def test_profile_and_save_vis(trained, tmp_path):
+    """inference --profile writes a torch.profiler trace that holds the
+    stage ranges; --save_vis every --save_vis_interval frames writes BEV
+    PNGs that the port's decoder reads (a 25.6 m range at 10 pixels a
+    metre)."""
+    import json
+
+    from coalign_tpu_torch.data.image_io import read_png
     _, _, model_dir, _ = trained
-    heter = tmp_path / "heter"
-    shutil.copytree(model_dir, heter)
-    params = load_yaml(str(heter / "config.yaml"))
-    params["heter"] = {"lidar_ratio": 0.5, "ego_modality": "lidar"}
-    with open(heter / "config.yaml", "w") as f:
+    work = str(tmp_path / "run")
+    shutil.copytree(model_dir, work)
+    trace = str(tmp_path / "trace")
+    res = run.main(["inference", "--model_dir", work, "--save_vis",
+                    "--save_vis_interval", "1", "--profile", trace, *CPU])
+    assert res["frames"] == 2
+    with open(os.path.join(trace, "trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "stage/post_process" in names
+    pngs = sorted(os.listdir(os.path.join(work, "vis")))
+    assert pngs == ["bev_00000.png", "bev_00001.png"]
+    for name in pngs:
+        img = read_png(os.path.join(work, "vis", name))
+        assert img.shape == (256, 256, 3)
+        assert (img == [0, 180, 0]).all(-1).any()      # the gt is drawn
+
+
+def test_heter_block_evaluates_like_jax(reference_run, tmp_path,
+                                       monkeypatch):
+    """A reference-style run directory whose config has a ``heter`` block
+    (coalign_tpu/tools/run.py:257-268) through the JAX cmd_inference and
+    the port's, both with --save_npy: the same result dict (AP within
+    0.005, frames and bandwidth equal) and, in each frame's dump, the same
+    per-CAV marker boxes (1e-5 m) and lidar-agent records."""
+    from coalign_tpu.data import batch as JBATCH
+    from coalign_tpu.tools.run import main as jax_main
+
+    monkeypatch.setattr(JBATCH, "_native", None)
+    port_dir = str(tmp_path / "port_run")
+    shutil.copytree(reference_run, port_dir)
+    params = load_yaml(os.path.join(port_dir, "config.yaml"))
+    params["heter"] = {"lidar_ratio": 0.5, "ego_modality": "lidar",
+                       "seed": 7}
+    with open(os.path.join(port_dir, "config.yaml"), "w") as f:
         yaml.safe_dump(params, f)
-    with pytest.raises(NotImplementedError, match="heter.*item 9"):
-        run.main(["inference", "--model_dir", str(heter), *CPU])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        evaluate_dataset(None, None, None, None, {}, heter_selector=object(),
-                         device="cpu")
+    jax_dir = str(tmp_path / "jax_run")
+    shutil.copytree(port_dir, jax_dir)
+    got = run.main(["inference", "--model_dir", port_dir, "--save_npy", *CPU])
+    want = jax_main(["inference", "--model_dir", jax_dir, "--save_npy"])
+    assert set(got) == set(want) and got["frames"] == want["frames"] == 4
+    for key, value in want.items():
+        tol = 0.005 if key.startswith("ap") else 1e-6 * abs(value)
+        assert abs(got[key] - value) <= tol, (key, got, want)
+    records = []
+    for i in range(got["frames"]):
+        for name, atol in (("cav_box", 1e-5), ("lidar_agent", 0)):
+            a = np.load(os.path.join(port_dir, "npy", f"{i:05d}_{name}.npy"))
+            b = np.load(os.path.join(jax_dir, "npy", f"{i:05d}_{name}.npy"))
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a, b, atol=atol, err_msg=name)
+        records.append(b.tolist())
+    assert all(r[0] == 1 for r in records)
 
 
 @pytest.mark.parametrize("bf16", [False, True])

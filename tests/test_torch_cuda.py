@@ -111,6 +111,12 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         K.rotated_iou(c.double(), c.double())
     with pytest.raises(ValueError):
         K.rotated_iou(c.transpose(1, 2).contiguous().transpose(1, 2), c)
+    # an exported program calls the op itself, past the wrapper
+    op = torch.ops.coalign_tpu_torch.rotated_iou
+    with pytest.raises(ValueError):
+        op(c.transpose(1, 2).contiguous().transpose(1, 2)[None], c[None])
+    with pytest.raises(TypeError):
+        op(c.double()[None], c.double()[None])
 
 
 @pytest.mark.cuda

@@ -156,3 +156,31 @@ def test_configure_cuda_sets_full_float32_and_autotuning(monkeypatch):
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
     assert torch.backends.cudnn.benchmark
+
+
+def test_serving_imports_neither_the_zoo_nor_the_config_package(
+        monkeypatch):
+    """coalign_tpu_torch/serving.py loads an artifact without the model
+    zoo or the config package: neither its import lines nor the import of
+    the module bring them in; load_artifact raises without a GPU unless
+    the CPU is named."""
+    from coalign_tpu_torch.serving import load_artifact
+    with open(os.path.join(PORT, "serving.py")) as f:
+        text = f.read()
+    pattern = re.compile(r"^\s*(?:import|from)\s+coalign_tpu_torch\."
+                         r"(?:models|config)(?:[.\s,]|$)", re.M)
+    assert not pattern.findall(text)
+    code = textwrap.dedent("""
+        import sys
+        import coalign_tpu_torch.serving
+        leaked = sorted(m for m in sys.modules if m.startswith((
+            "coalign_tpu_torch.models", "coalign_tpu_torch.config")))
+        assert not leaked, leaked
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_artifact(REPO)
