@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards N    # parallel/ over N cards (NCCL) only
 
 Phases, each printing one JSON line with its elapsed seconds:
   1. card    the GPU's name and power limit (nvidia-smi);
@@ -200,6 +201,22 @@ Phases, each printing one JSON line with its elapsed seconds:
              launch a step (the stage-1 NMS; the JAX package's step trains
              stage 1 alone); fpvrcnn_parity, a tiny FPV-RCNN's step on CUDA
              against the CPU (train_parity's bounds).
+ 27. parallel   a one-rank NCCL group opened by the script: the full-width
+             flagship W-sharded (parallel/spatial.py) against the dense
+             model's maps (1e-3; 1e-6 in float64), its request through
+             make_spatial_infer_fn (the eager request's box set, 1 IoU
+             launch, ms); the B=4 data-parallel train step against the
+             plain step after 2 steps in float64 (parameters and running
+             statistics within 1e-6), ms of a float32 step of each; two
+             ranks sharing the card over gloo, the flagship at W_local 352
+             (maps and box set held; they run beside the checks above,
+             and the times are taken after them);
+ 28. camera_pack   camera_disk's tree packed by tools/img2hdf5.py (no
+             h5py): packs read back equal to the PNGs, the LSS batches from
+             the packs equal to those from the PNGs, host ms a frame each;
+ 29. pfn_multilayer   the full-width flagship with a 2-layer PFN
+             (num_filters [64, 64], seeded; the rest from the checkpoint):
+             CUDA maps against the CPU's (2e-3), 1 IoU launch, ms.
 Then one JSON line describing each kernel (with its launches on each
 path above), timed at eight shapes (the main
 path's NMS input; that input stacked 8 times, a B=8 batch's one launch; 8
@@ -227,6 +244,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -4965,6 +4983,594 @@ def fpv_shapes(captured: list) -> dict:
     return out
 
 
+# the last module slice: spatial sharding and data parallelism over a
+# process group, hdf5 image packs, multi-layer PFNs
+SPATIAL_MAP_BOUND = 1e-3          # tests/test_spatial_shard.py's bound
+# float64: two orders of arithmetic through 16 blocks of cuDNN's autotuned
+# algorithms read 5e-13 to 8.5e-10 apart on maps of ~12 (H100); a
+# position or a weight out of place shows at 1e-4 and above
+SPATIAL_F64_BOUND = 1e-6
+DP_PARAM_BOUND = 1e-6
+DP_STEPS = 2
+DP_TIMED_STEPS = 2
+SPATIAL_REQUESTS = 10
+GLOO_PAIR_TIMEOUT_S = 240
+PFN_MULTILAYER = [64, 64]
+
+
+def full_flagship(device=None, args=None, strict: bool = True):
+    """The full-width flagship (FULL_ARGS, or ``args``) with
+    fullscale_multiscale.pth's weights: all of them, or with ``strict``
+    off those whose key and shape the model shares (the rest seeded)."""
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.utils.weights import load_pth
+    model = build_model({"core_method": "point_pillar_baseline_multiscale",
+                         "args": args or FULL_ARGS}, device=device, seed=0)
+    path = os.path.join(GOLDEN, "fullscale_multiscale.pth")
+    if strict:
+        load_pth(model, path)
+        return model, []
+    own = model.state_dict()
+    state = {k: v for k, v in torch.load(path, map_location="cpu").items()
+             if k in own and own[k].shape == v.shape}
+    model.load_state_dict(state, strict=False)
+    return model, sorted(set(own) - set(state))
+
+
+def full_post(io) -> dict:
+    return {"target_args": {"score_threshold": float(io["score_threshold"])},
+            "nms_thresh": float(io["nms_thresh"]),
+            "gt_range": FULL_ARGS["lidar_range"],
+            "dir_args": FULL_ARGS["dir_args"], "max_num": 100}
+
+
+class Rank(NamedTuple):
+    """A process of a group that launch started, and its log file."""
+    proc: subprocess.Popen
+    log: str
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that is free now."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def launch(world: int, argv: list, log_dir: str,
+           env: dict | None = None) -> list:
+    """Start ``world`` processes of ``argv`` as ranks 0 .. world - 1 of one
+    process group on this host, as torchrun would: each gets RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR (127.0.0.1) and MASTER_PORT (a free
+    port), which parallel/distributed.init_distributed_mode reads, and
+    ``env`` added to this process's environment. Each rank's output goes
+    to a file of its own (a pipe that nobody drains can stall a rank inside
+    a collective). Returns the ranks; the tests start their groups here
+    too."""
+    port = free_port()
+    os.makedirs(log_dir, exist_ok=True)
+    ranks = []
+    for rank in range(world):
+        e = dict(os.environ, **(env or {}))
+        e.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        log = os.path.join(log_dir, f"rank{rank}.log")
+        with open(log, "w") as out:
+            proc = subprocess.Popen(argv, env=e, stdout=out,
+                                    stderr=subprocess.STDOUT)
+        ranks.append(Rank(proc, log))
+    return ranks
+
+
+def wait(ranks: list, timeout_s: float) -> list:
+    """Wait for every rank of a launch, killing all of them once
+    ``timeout_s`` has passed, so that a group that hangs does not hang its
+    caller; [(exit code, output)] in rank order, the code None for a rank
+    that was killed."""
+    deadline = time.monotonic() + timeout_s
+    codes = []
+    for r in ranks:
+        try:
+            codes.append(r.proc.wait(max(deadline - time.monotonic(), 0.1)))
+        except subprocess.TimeoutExpired:
+            codes.append(None)
+            break
+    if len(codes) < len(ranks) or None in codes:
+        for r in ranks:
+            if r.proc.poll() is None:
+                r.proc.kill()
+            r.proc.wait()
+        codes += [None] * (len(ranks) - len(codes))
+    outs = []
+    for r in ranks:
+        with open(r.log) as f:
+            outs.append(f.read())
+    return list(zip(codes, outs))
+
+
+def spatial_maps(model, batch, mesh) -> tuple:
+    """(the spatial forward's maps gathered to full width, the dense
+    model's maps) of ``batch`` on the model's device."""
+    from coalign_tpu_torch.inference import to_device
+    from coalign_tpu_torch.parallel.spatial import (
+        gather_w, spatial_flagship_forward_fn)
+    dev = next(model.parameters()).device
+    b = to_device(batch, dev)
+    fwd, split = spatial_flagship_forward_fn(model, mesh)
+    with torch.no_grad():
+        bev, affine, _ = model._encode_agents(b)
+        got = {k: gather_w(v, mesh) for k, v in
+               fwd(bev, affine[:, 0], b["agent_mask"]).items()}
+        want = model(b)
+    return got, want, split
+
+
+def gloo_pair_worker():
+    """One rank of the gloo pair (parallel_check's step c): two processes
+    on the one card, the full-width flagship W-sharded at W_local 352,
+    halos and gathers staged through the host. Rank 0 checks the maps
+    against the dense model and the request's box set against the eager
+    request's, and prints its line. It runs beside the phase's checks on
+    the same card, so it takes no time."""
+    import torch.distributed as dist
+
+    from coalign_tpu_torch.inference import make_infer_fn
+    from coalign_tpu_torch.parallel import init_distributed_mode
+    from coalign_tpu_torch.parallel.spatial import (make_spatial_infer_fn,
+                                                    make_spatial_mesh)
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.runtime import configure_cuda
+    info = init_distributed_mode(backend="gloo")
+    check(info["world_size"] == 2, f"gloo pair: {info}")
+    configure_cuda()
+    # cuDNN's heuristic algorithms: a parity check, whose processes would
+    # otherwise autotune every shape anew
+    torch.backends.cudnn.benchmark = False
+    mesh = make_spatial_mesh()
+    batch, io = fullscale_batch()
+    model = full_flagship("cuda")[0].eval()
+    got, want, split = spatial_maps(model, batch, mesh)
+    err = {k: (got[k] - want[k]).abs().max().item() for k in want}
+    anchors = generate_anchor_box(FULL_ANCHORS)
+    sinfer = make_spatial_infer_fn(model, anchors, full_post(io), mesh)
+    dets = sinfer(batch)
+    if info["rank"] == 0:
+        for key, e in err.items():
+            check(e <= SPATIAL_MAP_BOUND, f"gloo pair {key}: {e:.2e}")
+        counts, iou, ds = same_box_sets(
+            dets, make_infer_fn(model, anchors, full_post(io))(batch))
+        print(json.dumps({"gloo_pair": {
+            "world": split.world, "w_local": split.w_local,
+            "map_max_abs_err": err, "boxes": counts, "min_matched_iou": iou,
+            "max_score_diff": ds}}), flush=True)
+    dist.destroy_process_group()
+
+
+def parallel_check(card) -> dict:
+    """The parallel phase: a one-rank NCCL process group opened by the
+    script (init_distributed_mode is a no-op at world 1, as the JAX
+    package's), handed to the port's spatial and data-parallel entry
+    points so that their collectives run.
+    (a) the full-width flagship (fullscale_multiscale.pth, the recording's
+        5 agents) through spatial_flagship_forward_fn against the dense
+        model's maps (SPATIAL_MAP_BOUND, TF32 off; in float64
+        SPATIAL_F64_BOUND, the two orders of arithmetic), then its request
+        through make_spatial_infer_fn: the eager request's box set, one
+        IoU launch, ms beside the eager request's;
+    (b) the B = 4 full-width train step with a mesh (shard, all-reduced
+        norms and losses, the gradients' mean) against the plain step (no
+        mesh: its sums its own), DP_STEPS steps each from the same
+        weights in float64: the parameters and running statistics within
+        DP_PARAM_BOUND; then ms a float32 step of each (autotuned, as the
+        train phase's);
+    (c) two ranks sharing the card over gloo (gloo_pair_worker), the
+        spatial flagship at W_local 352, its maps and box set held. They
+        start first and run beside the checks of (a) and (b); every time
+        is taken after they have ended, the card to itself.
+    Returns the IoU launches of a spatial request and of a DP step."""
+    import copy
+
+    import torch.distributed as dist
+
+    from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
+    from coalign_tpu_torch.data.prefetch import prefetch
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    from coalign_tpu_torch.inference import make_infer_fn
+    from coalign_tpu_torch.loss import build_loss
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.parallel import make_mesh
+    from coalign_tpu_torch.parallel.spatial import (make_spatial_infer_fn,
+                                                    make_spatial_mesh)
+    from coalign_tpu_torch.postprocess.anchors import (generate_anchor_box,
+                                                       make_anchor_spec)
+    from coalign_tpu_torch.runtime import configure_cuda
+    from coalign_tpu_torch.train import build_optimizer, make_train_step
+    configure_cuda()
+    torch.cuda.set_device(0)
+    torch.cuda.empty_cache()        # the pair's processes share the card
+    t0 = time.perf_counter()
+    pair = launch(2, [sys.executable, "-c",
+                      "import chip_smoke; chip_smoke.gloo_pair_worker()"],
+                  os.path.join(ROOT, "chiprun_out", "gloo_pair"),
+                  env={"PYTHONPATH": ROOT})
+    results = None
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+
+    fields, seconds = {}, {}
+    try:
+        # (a) the spatial flagship and its request
+        mesh = make_spatial_mesh()
+        batch, io = fullscale_batch()
+        model = full_flagship("cuda")[0].eval()
+        got, want, split = spatial_maps(model, batch, mesh)
+        err = {k: (got[k] - want[k]).abs().max().item() for k in want}
+        for key, e in err.items():
+            check(e <= SPATIAL_MAP_BOUND, f"spatial {key}: {e:.2e}")
+        # in float64 the two differ by their arithmetic's order alone
+        got, want, _ = spatial_maps(copy.deepcopy(model).double(), batch,
+                                    mesh)
+        err64 = {k: (got[k] - want[k]).abs().max().item() for k in want}
+        for key, e in err64.items():
+            check(e <= SPATIAL_F64_BOUND, f"spatial float64 {key}: {e:.2e}")
+        del got, want
+        anchors = generate_anchor_box(FULL_ANCHORS)
+        eager = make_infer_fn(model, anchors, full_post(io))
+        sinfer = make_spatial_infer_fn(model, anchors, full_post(io), mesh)
+        dets, launches = counted_call(sinfer, batch)
+        check(launches == 1, f"spatial request: {launches} IoU launches")
+        counts, iou, ds = same_box_sets(dets, eager(batch))
+
+        # (b) the data-parallel train step at world 1
+        scenes = SyntheticScenes(num_frames=TRAIN_BATCH, **TRAIN_SCENES)
+        host = IntermediateFusionBatcher(**TRAIN_BATCHER).assemble(
+            [scenes[i] for i in range(TRAIN_BATCH)])
+        (tb,) = list(prefetch(iter([host])))
+        base = build_model({"core_method": "point_pillar_baseline_multiscale",
+                            "args": TRAIN_FULL_ARGS}, seed=0)
+        spec = make_anchor_spec(FULL_ANCHORS, YAML_TARGETS)
+        modes = (("plain", None), ("mesh", make_mesh()))
+
+        def steps(dtype):
+            out = {}
+            for name, mesh_arg in modes:
+                m = copy.deepcopy(base).to(dtype)
+                opt = build_optimizer(m.parameters(), YAML_OPTIMIZER)[0]
+                out[name] = (m, make_train_step(
+                    m, build_loss(YAML_LOSS), spec, opt, mesh=mesh_arg))
+            return out
+
+        # the parity in float64: float32 steps differ from run to run on
+        # the card (grid_sample's backward accumulates with atomics), and
+        # Adam's first steps move a parameter whose gradient is within
+        # rounding of 0 by +-lr either way
+        runs = {}
+        for name, (m, step) in steps(torch.float64).items():
+            terms, n = counted_call(
+                lambda: [step(tb) for _ in range(DP_STEPS)])
+            runs[name] = (m, terms, n)
+        pm, mm = runs["plain"][0], runs["mesh"][0]
+        diff = max((a - b).abs().max().item() for a, b in zip(
+            pm.parameters(), mm.parameters()))
+        stat_diff = max((pm.state_dict()[k] - v).abs().max().item()
+                        for k, v in mm.state_dict().items()
+                        if k.endswith(("running_mean", "running_var")))
+        check(diff <= DP_PARAM_BOUND, f"dp step params: {diff:.2e}")
+        check(stat_diff <= DP_PARAM_BOUND, f"dp step stats: {stat_diff:.2e}")
+        dp_launches = runs["mesh"][2] / DP_STEPS
+        check(dp_launches == 0, f"{dp_launches} IoU launches a DP step")
+        loss = {k: [float(t["total_loss"]) for t in runs[k][1]]
+                for k in runs}
+        del runs, pm, mm
+        torch.cuda.empty_cache()
+        seconds["checks"] = time.perf_counter() - t0
+
+        # (c) the gloo pair, awaited
+        results = wait(pair, GLOO_PAIR_TIMEOUT_S)
+        for rank, (code, out) in enumerate(results):
+            check(code == 0, f"gloo pair rank {rank} exited {code}: "
+                  f"{out[-2000:]}")
+        line = [ln for ln in results[0][1].splitlines()
+                if ln.startswith('{"gloo_pair"')]
+        check(len(line) == 1, "gloo pair: rank 0 printed no result")
+        fields["gloo_pair"] = json.loads(line[0])["gloo_pair"]
+        seconds["gloo_pair_wall"] = time.perf_counter() - t0
+
+        # the times, the card to the script alone
+        t = time.perf_counter()
+        fields["spatial"] = {
+            "world": split.world, "w_local": split.w_local,
+            "canvas": [200, 704], "map_max_abs_err": err,
+            "float64_map_max_abs_err": err64, "boxes": counts,
+            "min_matched_iou": iou, "max_score_diff": ds,
+            "rotated_iou_launches": launches,
+            "requests": SPATIAL_REQUESTS,
+            "ms_per_request": event_ms(lambda: sinfer(batch),
+                                       SPATIAL_REQUESTS),
+            "eager_ms_per_request": event_ms(lambda: eager(batch),
+                                             SPATIAL_REQUESTS)}
+        del model, eager, sinfer
+        ms = {}
+        for name, (_, step) in steps(torch.float32).items():
+            ms[name] = event_ms(lambda: step(tb), DP_TIMED_STEPS, warmup=1)
+        fields["dp_step"] = {
+            "world": 1, "batch": TRAIN_BATCH, "steps": DP_STEPS,
+            "parity_dtype": "float64", "timed_dtype": "float32",
+            "timed_steps": DP_TIMED_STEPS,
+            "param_max_abs_diff": diff, "stats_max_abs_diff": stat_diff,
+            "total_loss": loss, "ms_per_step": ms["mesh"],
+            "plain_ms_per_step": ms["plain"],
+            "rotated_iou_launches_per_step": dp_launches}
+        del base, tb
+        torch.cuda.empty_cache()
+        seconds["timed"] = time.perf_counter() - t
+    finally:
+        dist.destroy_process_group()
+        if results is None:
+            wait(pair, 0)                  # a check failed: stop the pair
+    phase("parallel", **fields, seconds=seconds, card=card)
+    return {"spatial": fields["spatial"]["rotated_iou_launches"],
+            "dp_step": dp_launches}
+
+
+def camera_pack_check(card) -> dict:
+    """The camera_pack phase, after camera_disk on its tree (2 frames of 5
+    agents, 4 PNGs of 600 x 800 each): the LSS batch of each frame from
+    the PNGs (host ms a frame), then the tree packed by the port's
+    tools/img2hdf5.pack_root (no h5py), each pack read back array-equal to
+    the PNGs' decode, the camera PNGs deleted, and the batch of each frame
+    from the packs (host ms a frame) equal to the one from the PNGs."""
+    from coalign_tpu_torch.data import build_dataset
+    from coalign_tpu_torch.data.image_io import read_png
+    from coalign_tpu_torch.tools.img2hdf5 import pack_root, read_frame_hdf5
+    tree = os.path.join(ROOT, "coalign_tpu_torch", "_build", "camera_disk",
+                        "tree")
+    params = lss_params(LSS_YAML)
+    params.update(root_dir=tree, validate_dir=tree, test_dir=None)
+    base, batcher = build_dataset(params, train=False)
+    t = time.perf_counter()
+    want = [batcher.assemble([base[i]]) for i in range(len(base))]
+    png_ms = (time.perf_counter() - t) * 1e3 / len(base)
+    t = time.perf_counter()
+    packs = pack_root(tree)
+    pack_s = time.perf_counter() - t
+    check(packs == CAMERA_DISK_FRAMES * 5, f"camera_pack: {packs} packs")
+    pngs = 0
+    for i in range(len(base)):
+        for ag in base[i]["agents"]:
+            files = ag["camera_files"]
+            ts = os.path.basename(files[0]).split("_")[0]
+            arrays = read_frame_hdf5(os.path.dirname(files[0]), ts)
+            check(len(arrays) == len(files) == 4, "camera_pack: 4 cameras")
+            for path, arr in zip(files, arrays):
+                check(np.array_equal(arr, read_png(path)),
+                      f"camera_pack: {path} differs in its pack")
+                os.remove(path)
+                pngs += 1
+    t = time.perf_counter()
+    got = [batcher.assemble([base[i]]) for i in range(len(base))]
+    pack_ms = (time.perf_counter() - t) * 1e3 / len(base)
+    for g, w in zip(got, want):
+        for key in ("imgs", "post_rots", "post_trans", "rots", "intrins"):
+            check(np.array_equal(g["image_inputs"][key],
+                                 w["image_inputs"][key]),
+                  f"camera_pack: {key} from the packs differs")
+    phase("camera_pack", frames=len(base), packs=packs, pngs_replaced=pngs,
+          image_hw=list(CAMERA_DISK_HW), pack_s=pack_s,
+          pack_mb=sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                      os.walk(tree) for f in fs if f.endswith(".hdf5"))
+          / 2 ** 20,
+          host_png_ms_per_frame=png_ms, host_pack_ms_per_frame=pack_ms,
+          batches_equal=True, card=card)
+    return {"packs": packs}
+
+
+def pfn_multilayer_check(card) -> float:
+    """The pfn_multilayer phase: the full-width flagship with a 2-layer PFN
+    (num_filters PFN_MULTILAYER, pad_parity as FULL_ARGS), every other
+    weight from fullscale_multiscale.pth and the PFN seeded, on the
+    recording's 5 agents: CUDA maps against the CPU's (2e-3, the full
+    phase's bound), one IoU launch a request, its ms. Returns the
+    launches a request."""
+    from coalign_tpu_torch.inference import make_infer_fn, to_device
+    from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
+    from coalign_tpu_torch.runtime import configure_cuda
+    configure_cuda()
+    args = {**FULL_ARGS, "pillar_vfe": {**FULL_ARGS["pillar_vfe"],
+                                        "num_filters": PFN_MULTILAYER}}
+    batch, io = fullscale_batch()
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev], seeded = full_flagship(dev, args, strict=False)
+        check(seeded and all(k.startswith("pillar_vfe.") for k in seeded),
+              f"pfn_multilayer: seeded {seeded[:3]}")
+    with torch.no_grad():
+        cuda_maps = models["cuda"].eval()(to_device(batch, "cuda"))
+        t = time.perf_counter()
+        cpu_maps = models["cpu"].eval()(to_device(batch, "cpu"))
+        cpu_s = time.perf_counter() - t
+    err = _map_errors(cuda_maps, cpu_maps)
+    for key, e in err.items():
+        check(np.isfinite(e["max_abs_err"]) and e["max_abs_err"] < 2e-3,
+              f"pfn_multilayer {key}: CUDA vs CPU {e['max_abs_err']:.2e}")
+    infer = make_infer_fn(models["cuda"], generate_anchor_box(FULL_ANCHORS),
+                          full_post(io))
+    dets, launches = counted_call(infer, batch)
+    check(launches == 1, f"pfn_multilayer: {launches} IoU launches")
+    phase("pfn_multilayer", num_filters=PFN_MULTILAYER,
+          pfn_units=[layer.linear.out_features for layer in
+                     models["cuda"].pillar_vfe.pfn_layers],
+          seeded=seeded, map_errors=err, cpu_forward_s=cpu_s,
+          boxes=int(dets["mask"].sum()), rotated_iou_launches=launches,
+          requests=SPATIAL_REQUESTS,
+          ms_per_request=event_ms(lambda: infer(batch), SPATIAL_REQUESTS),
+          card=card)
+    return launches
+
+MULTICARD_TIMEOUT_S = 900
+
+
+def multicard_worker():
+    """One rank of ``chip_smoke.py --cards N`` (multicard_check): NCCL over
+    N cards, each rank on ``cuda:LOCAL_RANK``.
+    (a) the full-width flagship W-sharded over the N cards
+        (spatial_flagship_forward_fn, W_local 704 / N) against the dense
+        model's maps on each rank (SPATIAL_MAP_BOUND), its request through
+        make_spatial_infer_fn against rank 0's eager request (box set),
+        host ms a request, every rank in step;
+    (b) the B = 4 train step data-parallel over the N cards (4 / N
+        samples a card) against the plain step on rank 0 alone (its
+        sums its own): parameters and running statistics after DP_STEPS
+        float64 steps within DP_PARAM_BOUND; then ms of a float32 step of
+        each (autotuned).
+    Rank 0 prints its line."""
+    import copy
+
+    import torch.distributed as dist
+
+    from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
+    from coalign_tpu_torch.data.prefetch import prefetch
+    from coalign_tpu_torch.data.synthetic import SyntheticScenes
+    from coalign_tpu_torch.inference import make_infer_fn
+    from coalign_tpu_torch.loss import build_loss
+    from coalign_tpu_torch.models.zoo import build_model
+    from coalign_tpu_torch.parallel import (init_distributed_mode, make_mesh,
+                                            replicate, shard_batch)
+    from coalign_tpu_torch.parallel.distributed import local_rank
+    from coalign_tpu_torch.parallel.spatial import make_spatial_infer_fn
+    from coalign_tpu_torch.postprocess.anchors import (generate_anchor_box,
+                                                       make_anchor_spec)
+    from coalign_tpu_torch.runtime import configure_cuda
+    from coalign_tpu_torch.train import build_optimizer, make_train_step
+    dev = torch.device("cuda", local_rank())
+    torch.cuda.set_device(dev)
+    info = init_distributed_mode()
+    rank, world = info["rank"], info["world_size"]
+    check(info["distributed"] and world > 1, f"multicard: {info}")
+    configure_cuda()
+    mesh = make_mesh()
+    out = {"world": world, "devices": [torch.cuda.get_device_name(dev)]}
+
+    def host_ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / reps
+
+    # (a) the spatial flagship
+    batch, io = fullscale_batch()
+    model = full_flagship(dev)[0].eval()
+    got, want, split = spatial_maps(model, batch, mesh)
+    err = {k: (got[k] - want[k]).abs().max().item() for k in want}
+    for key, e in err.items():
+        check(e <= SPATIAL_MAP_BOUND, f"multicard spatial {key}: {e:.2e}")
+    anchors = generate_anchor_box(FULL_ANCHORS)
+    sinfer = make_spatial_infer_fn(model, anchors, full_post(io), mesh,
+                                   device=dev)
+    dets = sinfer(batch)
+    spatial = {"w_local": split.w_local, "map_max_abs_err": err,
+               "host_ms_per_request": host_ms(lambda: sinfer(batch),
+                                              SPATIAL_REQUESTS)}
+    if rank == 0:
+        eager = make_infer_fn(model, anchors, full_post(io), device=dev)
+        counts, iou, ds = same_box_sets(dets, eager(batch))
+        spatial.update(boxes=counts, min_matched_iou=iou,
+                       max_score_diff=ds,
+                       eager_ms_per_request=event_ms(lambda: eager(batch),
+                                                     SPATIAL_REQUESTS))
+    dist.barrier()
+    del model, sinfer
+    out["spatial"] = spatial
+
+    # (b) the data-parallel train step
+    scenes = SyntheticScenes(num_frames=TRAIN_BATCH, **TRAIN_SCENES)
+    host = IntermediateFusionBatcher(**TRAIN_BATCHER).assemble(
+        [scenes[i] for i in range(TRAIN_BATCH)])
+    # this card's share, sliced on the host as train_epochs slices it
+    (local,) = list(prefetch(iter([shard_batch(host, mesh)]), device=dev))
+    base = build_model({"core_method": "point_pillar_baseline_multiscale",
+                        "args": TRAIN_FULL_ARGS}, device=dev, seed=0)
+    replicate(base, mesh)
+    spec = make_anchor_spec(FULL_ANCHORS, YAML_TARGETS)
+
+    def step_of(dtype, mesh_arg):
+        m = copy.deepcopy(base).to(dtype)
+        opt = build_optimizer(m.parameters(), YAML_OPTIMIZER)[0]
+        return m, make_train_step(m, build_loss(YAML_LOSS), spec, opt,
+                                  device=dev, mesh=mesh_arg)
+
+    mm, step = step_of(torch.float64, mesh)
+    for _ in range(DP_STEPS):
+        step(local)
+    dp = {"batch": TRAIN_BATCH, "samples_per_card": TRAIN_BATCH // world,
+          "steps": DP_STEPS}
+    if rank == 0:
+        (tb,) = list(prefetch(iter([host]), device=dev))
+        pm, plain = step_of(torch.float64, None)
+        for _ in range(DP_STEPS):
+            plain(tb)
+        dp["param_max_abs_diff"] = max(
+            (a - b).abs().max().item()
+            for a, b in zip(pm.parameters(), mm.parameters()))
+        dp["stats_max_abs_diff"] = max(
+            (pm.state_dict()[k] - v).abs().max().item()
+            for k, v in mm.state_dict().items()
+            if k.endswith(("running_mean", "running_var")))
+        check(dp["param_max_abs_diff"] <= DP_PARAM_BOUND
+              and dp["stats_max_abs_diff"] <= DP_PARAM_BOUND,
+              f"multicard dp step: {dp}")
+        del pm, plain
+    dist.barrier()
+    del mm, step
+    torch.cuda.empty_cache()
+    _, step = step_of(torch.float32, mesh)
+    for _ in range(2):                       # cuDNN autotunes these shapes
+        step(local)
+    dp["ms_per_step"] = host_ms(lambda: step(local), DP_TIMED_STEPS)
+    del step
+    if rank == 0:
+        _, plain = step_of(torch.float32, None)
+        plain(tb)
+        dp["plain_one_card_ms_per_step"] = event_ms(
+            lambda: plain(tb), DP_TIMED_STEPS, warmup=1)
+    dist.barrier()
+    out["dp_step"] = dp
+    if rank == 0:
+        print(json.dumps({"multicard": out}), flush=True)
+    dist.destroy_process_group()
+
+
+def multicard_check(cards: int) -> int:
+    """``python3 chip_smoke.py --cards N``: multicard_worker on N cards of
+    one host (NCCL), every rank killed past MULTICARD_TIMEOUT_S. Prints the
+    card line and rank 0's result; not part of the one-card run."""
+    from coalign_tpu_torch.kernels import rotated_iou as K
+    check(torch.cuda.device_count() >= cards,
+          f"{cards} cards asked, {torch.cuda.device_count()} present")
+    K.build()
+    t = time.perf_counter()
+    results = wait(launch(cards, [
+        sys.executable, "-c",
+        "import chip_smoke; chip_smoke.multicard_worker()"],
+        os.path.join(ROOT, "chiprun_out", "multicard"),
+        env={"PYTHONPATH": ROOT}), MULTICARD_TIMEOUT_S)
+    for rank, (code, text) in enumerate(results):
+        check(code == 0, f"multicard rank {rank} exited {code}: "
+              f"{text[-3000:]}")
+    line = [ln for ln in results[0][1].splitlines()
+            if ln.startswith('{"multicard"')]
+    check(len(line) == 1, "multicard: rank 0 printed no result")
+    phase("multicard", **json.loads(line[0])["multicard"],
+          wall_s=time.perf_counter() - t, card=card_line())
+    return 0
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -5218,6 +5824,12 @@ def main() -> int:
     # 15. the on-disk data path and the run CLI at full width
     disk = disk_check(card, per_call, native_build)
 
+    # 27-29. the last module slice: spatial sharding and the data-parallel
+    # step over a process group, hdf5 camera packs, multi-layer PFNs
+    parallel_launches = parallel_check(card)
+    camera_pack_check(card)
+    pfn_launches = pfn_multilayer_check(card)
+
     # the kernel on the main path's own input (one frame's 512 boxes), on
     # that input stacked 8 times (the NMS of a B=8 batch, one launch), on
     # 8 frames of boxes packed into 20 m x 20 m (the cull's worst case) and
@@ -5279,6 +5891,9 @@ def main() -> int:
         "launches_per_fpvrcnn_request": fpv_launches["fpvrcnn"],
         "launches_per_fvoxelrcnn_request": fpv_launches["fvoxelrcnn"],
         "launches_per_fpvrcnn_train_step": fpv_train_launches,
+        "launches_per_spatial_request": parallel_launches["spatial"],
+        "launches_per_pfn_multilayer_request": pfn_launches,
+        "launches_per_dp_train_step": parallel_launches["dp_step"],
         **disk,
         "max_abs_err": main["max_abs_err"],
         "max_abs_diff": main["max_abs_err"],
@@ -5305,4 +5920,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cards"]:
+        sys.exit(multicard_check(int(sys.argv[2])))
     sys.exit(main())

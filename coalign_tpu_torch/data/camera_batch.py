@@ -10,8 +10,11 @@ the lidar's, then the UE4 -> OpenCV axis permutation.
 
 The images are PNGs read and resized by data/image_io.py (Pillow's
 bilinear resize, bit for bit), not by Pillow. A frame packed into an hdf5
-file (``<ts>_imgs.hdf5``, the JAX package's tools/img2hdf5.py) is refused:
-the packer and its reader come with ROADMAP item 9.
+file beside its PNGs (``<ts>_imgs.hdf5``, tools/img2hdf5.py, or the JAX
+package's) is read from the pack instead, once per agent frame, by
+utils/hdf5.py (no h5py), then resized or augmented exactly as from the
+PNGs (coalign_tpu/data/camera_batch.py:173-190). A pack that cannot be
+read raises; nothing falls back to the PNGs.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 
 from coalign_tpu_torch.data.batch import IntermediateFusionBatcher
 from coalign_tpu_torch.data.image_io import read_rgb, resize_bilinear
+from coalign_tpu_torch.tools.img2hdf5 import read_frame_hdf5
 from coalign_tpu_torch.utils.transforms import inverse_tfm, pose_to_tfm
 
 # UE4 camera axes -> OpenCV's (ref opv2v_basedataset.py:441-443)
@@ -145,14 +149,24 @@ class CameraBatcher:
         arr = resize_bilinear(arr8, (h, w)).astype(np.float32) / 255.0
         return arr, _scale_rot(w, w0, h, h0)
 
-    def _file_image(self, path: str):
-        """(img, post_rot, post_trans) of a camera PNG."""
-        pack = hdf5_pack(path)
-        if os.path.exists(pack):
-            raise NotImplementedError(
-                f"{pack}: hdf5 image packs come with tools/img2hdf5.py "
-                "(ROADMAP item 9)")
-        img = read_rgb(path)
+    def _pack(self, files: list):
+        """The camera arrays of the agent frame's hdf5 pack, or None when
+        the frame is not packed."""
+        if not files:
+            return None
+        return read_frame_hdf5(os.path.dirname(files[0]),
+                               os.path.basename(files[0]).split("_")[0],
+                               self.num_cams)
+
+    def _file_image(self, path: str, packed=None):
+        """(img, post_rot, post_trans) of a camera PNG, or of ``packed``,
+        its array from the frame's pack, where given."""
+        if packed is None:
+            img = read_rgb(path)
+        elif packed.ndim == 2:
+            img = np.repeat(packed[..., None], 3, axis=-1)
+        else:
+            img = packed[..., :3]
         if self.augmentor is not None:
             rs, crop, flip = self.augmentor.sample(img.shape[1], img.shape[0])
             return img_transform(img, rs, crop, flip, self.final_dim)
@@ -185,6 +199,7 @@ class CameraBatcher:
                 cams = ag.get("cameras", {})
                 files = ag.get("camera_files", [])
                 arrays = ag.get("camera_arrays", [])
+                packed = self._pack(files) if not arrays else None
                 for ci in range(min(n, len(cams))):
                     cam = cams.get(f"camera{ci}")
                     if cam is None:
@@ -200,7 +215,9 @@ class CameraBatcher:
                             post_rots[bi, ai, ci] = pr
                     elif ci < len(files):
                         (imgs[bi, ai, ci], post_rots[bi, ai, ci],
-                         post_trans[bi, ai, ci]) = self._file_image(files[ci])
+                         post_trans[bi, ai, ci]) = self._file_image(
+                            files[ci], packed[ci] if packed
+                            and ci < len(packed) else None)
 
         batch["image_inputs"] = {
             "imgs": imgs, "rots": rots, "trans": trans, "intrins": intrins,

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from coalign_tpu_torch.ops.lss import bin_depths
+from coalign_tpu_torch.parallel.distributed import global_sum
 
 
 def depth_supervision_loss(depth_logits: torch.Tensor,
@@ -25,7 +26,8 @@ def depth_supervision_loss(depth_logits: torch.Tensor,
     valid = idx < d
     logp = torch.log_softmax(depth_logits, dim=2)
     ce = -logp.gather(2, idx.clamp(max=d - 1)[:, :, None]).squeeze(2)
-    return (ce * valid).sum() / torch.clamp(valid.sum(), min=1)
+    return global_sum((ce * valid).sum()) / torch.clamp(
+        global_sum(valid.sum().to(ce.dtype)), min=1)
 
 
 class CameraDetLoss:

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from coalign_tpu_torch.loss.point_pillar_loss import build_loss as _build_pp
+from coalign_tpu_torch.parallel.distributed import global_mean
 
 
 def channel_kl(student: torch.Tensor, teacher: torch.Tensor) -> torch.Tensor:
@@ -19,7 +20,7 @@ def channel_kl(student: torch.Tensor, teacher: torch.Tensor) -> torch.Tensor:
     KLDivLoss(size_average=True) does (ref kd_loss_feature)."""
     log_s = torch.log_softmax(student, dim=1)
     log_t = torch.log_softmax(teacher, dim=1)
-    return (log_t.exp() * (log_t - log_s)).mean()
+    return global_mean(log_t.exp() * (log_t - log_s))
 
 
 class DiscoNetLoss:

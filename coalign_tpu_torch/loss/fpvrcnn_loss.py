@@ -27,6 +27,7 @@ import torch
 
 from coalign_tpu_torch.kernels.rotated_iou import rotated_iou
 from coalign_tpu_torch.loss.point_pillar_loss import build_loss as _build_pp
+from coalign_tpu_torch.parallel.distributed import global_mean
 from coalign_tpu_torch.utils.box_utils import boxes_to_corners_3d
 
 
@@ -66,7 +67,7 @@ def roi_stage2_loss(outputs: dict, gt_boxes, gt_mask, pos_iou: float = 0.5,
                      torch.abs(diff) - 0.5).sum(-1)
     reg_loss = torch.where(pos, sm, 0.0).sum(-1) / torch.clamp(pos.sum(-1),
                                                                min=1)
-    return cls_loss.mean(), reg_loss.mean()
+    return global_mean(cls_loss), global_mean(reg_loss)
 
 
 def _strip(tree: dict) -> dict:

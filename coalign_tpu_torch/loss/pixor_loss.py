@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from coalign_tpu_torch.parallel.distributed import global_mean, global_sum
+
 
 class PixorLoss:
     def __init__(self, alpha: float = 1.0, beta: float = 1.0):
@@ -27,12 +29,13 @@ class PixorLoss:
 
         ce = (torch.clamp(cls_p, min=0) - cls_p * cls_t
               + torch.log1p(torch.exp(-torch.abs(cls_p))))
-        cls_loss = ce.mean()
+        cls_loss = global_mean(ce)
 
         diff = (reg_p - reg_t) * cls_t
         sm = torch.where(torch.abs(diff) < 1.0, 0.5 * diff ** 2,
                          torch.abs(diff) - 0.5)
-        reg_loss = sm.sum() / torch.clamp(cls_t.sum(), min=1.0)
+        reg_loss = global_sum(sm.sum()) / torch.clamp(global_sum(cls_t.sum()),
+                                                      min=1.0)
 
         total = self.alpha * cls_loss + self.beta * reg_loss
         return total, {"total_loss": total, "cls_loss": cls_loss,

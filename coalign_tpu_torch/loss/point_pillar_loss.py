@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from coalign_tpu_torch.parallel.distributed import global_sum
 from coalign_tpu_torch.utils.common import limit_period
 
 
@@ -98,7 +99,10 @@ class PointPillarLoss:
             sample_mask = torch.ones(b, dtype=cls_logits.dtype,
                                      device=cls_logits.device)
         sample_mask = sample_mask.to(cls_logits.dtype)
-        denom = torch.clamp(sample_mask.sum(), min=1.0)
+        # the batch-wide sums are the whole batch's under a process group
+        # (parallel/distributed.global_sum); the per-sample normalizer is
+        # each sample's own
+        denom = torch.clamp(global_sum(sample_mask.sum()), min=1.0)
         pos = pos * sample_mask[:, None, None]
         neg = neg * sample_mask[:, None, None]
         pos_normalizer = torch.clamp(pos.sum(dim=1, keepdim=True), min=1.0)
@@ -106,7 +110,7 @@ class PointPillarLoss:
         cls_weights = (pos * cfg.pos_cls_weight + neg) / pos_normalizer
         cls_loss = sigmoid_focal_loss(cls_logits, pos, cfg.cls_alpha,
                                       cfg.cls_gamma) * cls_weights
-        cls_loss = cls_loss.sum() * cfg.cls_weight / denom
+        cls_loss = global_sum(cls_loss.sum()) * cfg.cls_weight / denom
 
         reg_weights = pos / pos_normalizer
         # sin(a - b) = sin a cos b - cos a sin b, split between the two
@@ -117,7 +121,7 @@ class PointPillarLoss:
         reg_tt = torch.cat([reg_t[..., :6], sin_t[..., None]], dim=-1)
         reg_loss = weighted_smooth_l1(reg_p, reg_tt, cfg.reg_sigma) \
             * reg_weights
-        reg_loss = reg_loss.sum() * cfg.reg_weight / denom
+        reg_loss = global_sum(reg_loss.sum()) * cfg.reg_weight / denom
 
         total = cls_loss + reg_loss
         terms = {"cls_loss": cls_loss, "reg_loss": reg_loss}
@@ -125,7 +129,7 @@ class PointPillarLoss:
             logp = F.log_softmax(_flat(outputs["dir_preds"], cfg.num_bins),
                                  dim=-1)
             dir_ce = -(self._direction_targets(reg_t) * logp).sum(-1)
-            dir_loss = (dir_ce * reg_weights[..., 0]).sum() \
+            dir_loss = global_sum((dir_ce * reg_weights[..., 0]).sum()) \
                 * cfg.dir_weight / denom
             total = total + dir_loss
             terms["dir_loss"] = dir_loss

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from coalign_tpu_torch.loss.point_pillar_loss import build_loss as _build_pp
+from coalign_tpu_torch.parallel.distributed import global_mean
 
 
 def smooth_l1(x, beta=1.0):
@@ -38,10 +39,10 @@ class RobustLoss:
         if self.stage >= 1 and "pose_corr_target" in outputs:
             err = outputs["pose_corr"] - outputs["pose_corr_target"]
             yaw = torch.atan2(torch.sin(err[..., 2]), torch.cos(err[..., 2]))
-            pose_loss = (smooth_l1(err[..., :2]).sum(-1)
-                         + self.angle_weight * smooth_l1(yaw)).mean()
+            pose_loss = global_mean(smooth_l1(err[..., :2]).sum(-1)
+                                    + self.angle_weight * smooth_l1(yaw))
             score = torch.clamp(outputs["agent_scores"], 1e-4, 1 - 1e-4)
-            score_loss = (-torch.log(score)).mean()
+            score_loss = global_mean(-torch.log(score))
             total = total + self.pose_weight * pose_loss \
                 + self.score_weight * score_loss
             terms.update(pose_loss=pose_loss, score_loss=score_loss)
@@ -76,7 +77,7 @@ class MashLoss:
             logits = outputs["corr_vol"]
             p = torch.exp(logits - logits.amax(-1, keepdim=True))
             p = p / p.sum(-1, keepdim=True)
-            entropy = -(p * torch.log(p + 1e-9)).sum(-1).mean()
+            entropy = global_mean(-(p * torch.log(p + 1e-9)).sum(-1))
             total = total + self.corr_weight * entropy
             terms.update(corr_entropy=entropy)
         terms["total_loss"] = total

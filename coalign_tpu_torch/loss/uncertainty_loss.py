@@ -25,6 +25,7 @@ from coalign_tpu_torch.loss.point_pillar_loss import (PointPillarLoss,
                                                       PointPillarLossCfg,
                                                       _flat)
 from coalign_tpu_torch.loss.point_pillar_loss import build_loss as _build_base
+from coalign_tpu_torch.parallel.distributed import global_sum, summing_mesh
 
 
 class UncertaintyCfg(NamedTuple):
@@ -93,8 +94,12 @@ class PointPillarUncertaintyLoss(PointPillarLoss):
                                      u.s0, u.limit_period)
         else:
             loss_a = kl_loss_xy(theta_diff, sm[..., 2:3], "l2")
-        unc_loss = (torch.cat([loss_xy, u.angle_weight * loss_a], dim=-1)
-                    * weights).sum() * u.weight / b
+        # the whole batch's B under a data-parallel step's global sums
+        mesh = summing_mesh()
+        n = b if mesh is None else b * mesh.world
+        unc_loss = global_sum((torch.cat([loss_xy, u.angle_weight * loss_a],
+                                         dim=-1) * weights).sum()) \
+            * u.weight / n
         total = total + unc_loss
         terms["unc_loss"] = unc_loss
         terms["total_loss"] = total

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from coalign_tpu_torch.parallel.distributed import global_sum
+
 
 class VoxelNetLoss:
     def __init__(self, alpha: float = 1.5, beta: float = 1.0,
@@ -35,15 +37,16 @@ class VoxelNetLoss:
         rm = outputs["reg_preds"].permute(0, 2, 3, 1)
         pos, neg = labels["pos_equal_one"], labels["neg_equal_one"]
         p_pos = torch.sigmoid(psm)
-        pos_sum = pos.sum()
-        cls_pos = (-pos * torch.log(p_pos + 1e-6)).sum() / (pos_sum + 1e-6)
-        cls_neg = ((-neg * torch.log1p(-(p_pos - 1e-6))).sum()
-                   / (neg.sum() + 1e-6))
+        pos_sum = global_sum(pos.sum())
+        cls_pos = (global_sum((-pos * torch.log(p_pos + 1e-6)).sum())
+                   / (pos_sum + 1e-6))
+        cls_neg = (global_sum((-neg * torch.log1p(-(p_pos - 1e-6))).sum())
+                   / (global_sum(neg.sum()) + 1e-6))
         shape = rm.shape[:-1] + (rm.shape[-1] // 7, 7)
         diff = (rm.reshape(shape) - labels["targets"].reshape(shape)) \
             * pos[..., None]
         sm = torch.where(diff.abs() < 1.0, 0.5 * diff ** 2, diff.abs() - 0.5)
-        reg = sm.sum() / (pos_sum + 1e-6)
+        reg = global_sum(sm.sum()) / (pos_sum + 1e-6)
         conf = self.alpha * cls_pos + self.beta * cls_neg
         total = self.reg_coe * reg + conf
         return total, {"total_loss": total, "conf_loss": conf,

@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from coalign_tpu_torch.parallel.distributed import global_sum, summing_mesh
 from coalign_tpu_torch.runtime import lowp_call
 
 BN_EPS = 1e-3
@@ -143,13 +144,24 @@ def _masked_moments(x: torch.Tensor, mask, channel_dim: int):
     ``channel_dim``, each element weighted by ``mask`` (broadcast over the
     channels; bool or float) where given."""
     dims = tuple(d for d in range(x.dim()) if d != channel_dim % x.dim())
+    # inside a data-parallel step's global_sums block the moments are the
+    # whole batch's over the mesh's ranks (parallel/distributed.global_sum):
+    # the global mean first, then the global sum of squares about it; the
+    # ranks' shards are equal (shard_batch), so an unmasked mean is the
+    # ranks' means over the world; at world 1 the same bits
+    mesh = summing_mesh()
     if mask is None:
         mean = x.mean(dims, keepdim=True)
-        return mean, ((x - mean) ** 2).mean(dims, keepdim=True)
+        if mesh is None:
+            return mean, ((x - mean) ** 2).mean(dims, keepdim=True)
+        mean = global_sum(mean) / mesh.world
+        return mean, global_sum(((x - mean) ** 2).mean(dims, keepdim=True)) \
+            / mesh.world
     w = mask.to(x.dtype).unsqueeze(channel_dim).expand_as(x)
-    denom = torch.clamp(w.sum(dims, keepdim=True), min=1.0)
-    mean = (x * w).sum(dims, keepdim=True) / denom
-    return mean, (w * (x - mean) ** 2).sum(dims, keepdim=True) / denom
+    denom = torch.clamp(global_sum(w.sum(dims, keepdim=True)), min=1.0)
+    mean = global_sum((x * w).sum(dims, keepdim=True)) / denom
+    return mean, global_sum((w * (x - mean) ** 2).sum(dims,
+                                                      keepdim=True)) / denom
 
 
 class _MaskedNorm:

@@ -20,7 +20,11 @@ Usage:
   python -m coalign_tpu_torch.tools.run config_generate -y <hypes.yaml>
 
 Every subcommand runs on CUDA unless ``--device`` names another device, and
-raises without a GPU unless given ``--device cpu``. A run directory holds
+raises without a GPU unless given ``--device cpu``. ``train`` is
+data-parallel when launched as several processes (torchrun, or RANK and
+WORLD_SIZE with MASTER_ADDR and MASTER_PORT): NCCL over ``cuda:LOCAL_RANK``,
+or gloo with ``--device cpu``; the yaml's batch size is the global one and
+must divide by the world. A run directory holds
 its ``config.yaml`` and ``net_epoch*.pth`` files: a reference (opencood) run
 directory loads as it is, its checkpoint strictly. The JAX package's orbax
 ``step_*`` checkpoints are not read (utils/weights.from_jax_params converts
@@ -36,6 +40,7 @@ import zipfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from coalign_tpu_torch.config.yaml_utils import load_yaml, save_yaml
 from coalign_tpu_torch.data import build_dataset
@@ -43,6 +48,9 @@ from coalign_tpu_torch.inference import evaluate_dataset
 from coalign_tpu_torch.loss import build_loss
 from coalign_tpu_torch.models.zoo import build_model
 from coalign_tpu_torch.ops.bev_raster import BevSpec
+from coalign_tpu_torch.parallel import (init_distributed_mode, make_mesh,
+                                        replicate)
+from coalign_tpu_torch.parallel.distributed import local_rank
 from coalign_tpu_torch.postprocess.anchors import (generate_anchor_box,
                                                    make_anchor_spec)
 from coalign_tpu_torch.postprocess.dense_bev import DenseBevSpec
@@ -131,8 +139,35 @@ def cmd_train(opt):
     ``net_epoch{N}.pth`` at epoch N; log the metrics to TensorBoard under
     ``tb/`` (utils/tb_logging.py); save ``net_epoch{N+epochs}.pth``, then
     evaluate with the config's fusion protocol. Returns (model, eval
-    result)."""
+    result).
+
+    Launched as several processes (the environment of
+    parallel/distributed.detect_env), it trains data-parallel on a
+    process group that init_distributed_mode opens, each rank on
+    ``cuda:LOCAL_RANK`` (or the CPU with ``--device cpu``), as the JAX
+    package trains on its mesh (coalign_tpu/tools/run.py:115-117): the
+    same steps as one process on the global batch. A group that does not
+    open, or a batch size that the world does not divide, raises. Rank 0
+    alone writes the run directory (config, source backup, TensorBoard,
+    checkpoints) and evaluates; the other ranks wait at a barrier until
+    its checkpoint is written and return (model, None)."""
     dev = resolve_device(opt.device)
+    info = init_distributed_mode(device=dev)
+    rank, world = info["rank"], info["world_size"]
+    try:
+        return _train(opt, dev, rank, world)
+    finally:
+        if info["distributed"]:
+            dist.destroy_process_group()
+
+
+def _train(opt, dev, rank: int, world: int):
+    mesh = None
+    if world > 1:
+        if dev.type == "cuda":
+            dev = torch.device("cuda", local_rank())
+            torch.cuda.set_device(dev)
+        mesh = make_mesh()
     params = load_yaml(opt.hypes_yaml)
     if opt.root_dir:
         params["root_dir"] = opt.root_dir
@@ -145,19 +180,28 @@ def cmd_train(opt):
     base, batcher, model, loss_fn, spec = build_all(params, train=True,
                                                     device=dev)
     tp = params["train_params"]
+    if tp["batch_size"] % world:
+        raise ValueError(f"batch_size {tp['batch_size']} is not divisible "
+                         f"by the {world} processes")
 
     model_dir = opt.model_dir or os.path.join("logs", params.get("name",
                                                                  "exp"))
-    os.makedirs(model_dir, exist_ok=True)
-    save_yaml(params, os.path.join(model_dir, "config.yaml"))
-    _backup_source(model_dir)
+    if rank == 0:
+        os.makedirs(model_dir, exist_ok=True)
+        save_yaml(params, os.path.join(model_dir, "config.yaml"))
+        _backup_source(model_dir)
+    if mesh is not None:
+        dist.barrier()
 
     start_epoch = 0
     resumed = latest_checkpoint(model_dir)
     if resumed is not None:
         start_epoch, path = resumed
         load_checkpoint(model, path)
-        print(json.dumps({"resumed_from": os.path.basename(path)}))
+        if rank == 0:
+            print(json.dumps({"resumed_from": os.path.basename(path)}))
+    if mesh is not None:
+        replicate(model, mesh)
     steps_per_epoch = max(1, len(base) // tp["batch_size"])
     optimizer, scheduler = build_optimizer(
         model.parameters(), params["optimizer"], params.get("lr_scheduler"),
@@ -173,18 +217,25 @@ def cmd_train(opt):
     # TensorBoard scalars beside the checkpoints (ref criterion.logging ->
     # the tensorboardX writer of tools/train.py); a no-op where no writer
     # imports
-    log, tb_close = make_tb_callback(os.path.join(model_dir, "tb"),
-                                     inner=lambda m: print(json.dumps(m)))
+    log, tb_close = (make_tb_callback(os.path.join(model_dir, "tb"),
+                                      inner=lambda m: print(json.dumps(m)))
+                     if rank == 0 else (None, lambda: None))
     train_epochs(model, loss_fn, spec, optimizer, scheduler, batcher, base,
                  epochs=epochs, batch_size=tp["batch_size"],
                  ckpt_dir=model_dir, save_freq=tp.get("save_freq", 0),
                  callback=log, val_dataset=val_base,
                  eval_freq=tp.get("eval_freq", 0), start_epoch=start_epoch,
-                 device=dev)
+                 device=dev, mesh=mesh)
     tb_close()
-    path = save_checkpoint(model, model_dir, start_epoch + epochs)
-    print(json.dumps({"saved": path}))
-
+    if rank == 0:
+        path = save_checkpoint(model, model_dir, start_epoch + epochs)
+        print(json.dumps({"saved": path}))
+    if mesh is not None:
+        # the other ranks wait for the checkpoint, then leave: rank 0's
+        # evaluation runs no collective, and may outlast a barrier's timeout
+        dist.barrier()
+    if rank != 0:
+        return model, None
     # the end-of-train eval follows the config's fusion protocol (ref
     # train.py:187-194 runs inference.py with the matching fusion flag)
     res = evaluate_dataset(model, batcher, base, _anchors(spec),

@@ -6,10 +6,27 @@ boxes, so the host only feeds raw padded points. The model's parameters
 and running statistics, and the optimizer's state, live in the torch
 objects that the step updates in place; checkpoints are torch state dicts
 under the reference's file names.
+
+Data parallelism (parallel/mesh.py): with a ``mesh``, the step is the
+single-process step on the global batch, as the JAX step over a batch
+sharded on its mesh is. Each rank runs forward and backward on its slice
+of the batch (shard_batch, which train_epochs applies on the host before
+the copy to the device); inside the step's global_sums block the batch
+norms' statistics and the losses' batch-wide sums are all-reduced over
+the mesh's group on the autograd graph
+(parallel/distributed.global_sum), so every rank holds the global loss.
+The rule for the gradients is the mean: the backward of those
+all-reduces sums every rank's copy of the global loss, so the ranks'
+parameter gradients sum to world x its gradient; the step all-reduces
+them and divides by the world, after which every rank holds the global
+loss's gradient on the whole batch and runs the same optimizer step, and
+the parameters stay equal without a broadcast. Only rank 0 writes
+checkpoints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 
@@ -18,6 +35,8 @@ from torch.profiler import record_function
 
 from coalign_tpu_torch.data.prefetch import prefetch
 from coalign_tpu_torch.inference import to_device
+from coalign_tpu_torch.parallel.distributed import global_sums
+from coalign_tpu_torch.parallel.mesh import shard_batch
 from coalign_tpu_torch.postprocess.anchors import (AnchorSpec,
                                                    assign_targets,
                                                    assign_targets_per_agent)
@@ -93,8 +112,25 @@ def build_optimizer(params, opt_cfg: dict, sched_cfg: dict | None = None,
     return opt, sched
 
 
+def reduce_gradients(params, mesh):
+    """All-reduce the gradients of ``params`` over the mesh's group in one
+    flat buffer and divide them by the world: the mean rule of the module
+    docstring. Every parameter has a gradient (make_train_step fills the
+    missing ones with zeros first)."""
+    import torch.distributed as dist
+
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.group)
+    flat /= mesh.world
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 def make_train_step(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
-                    scheduler=None, device=None, teacher=None):
+                    scheduler=None, device=None, teacher=None, mesh=None):
     """(batch) -> loss terms of one training step on ``device`` (CUDA unless
     named; on CUDA it sets runtime.configure_cuda's policy).
 
@@ -112,7 +148,14 @@ def make_train_step(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
 
     With a ``teacher`` (knowledge distillation, tools/train_kd.py) the
     frozen teacher runs on the batch in eval mode without gradients before
-    the model, and the loss takes its outputs merged into the model's."""
+    the model, and the loss takes its outputs merged into the model's.
+
+    With a ``mesh`` (parallel/mesh.make_mesh, its process group open) the
+    step is data-parallel: it takes this rank's slice of the global batch
+    (parallel/mesh.shard_batch), runs the model and the loss with the
+    mesh's global sums on, combines the gradients over the mesh's group
+    by the module docstring's rule and returns the global loss terms.
+    Every rank must hold the same weights first (parallel/mesh.replicate)."""
     dev = resolve_device(device)
     model.to(dev)
     if teacher is not None:
@@ -141,9 +184,11 @@ def make_train_step(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
             with torch.no_grad(), record_function("stage/teacher"):
                 t_out = teacher(b)
         model.train()
-        out = dict(model(b), **t_out)
-        with record_function("stage/loss"):
-            total, terms = loss_fn(out, labels)
+        with (contextlib.nullcontext() if mesh is None
+              else global_sums(mesh)):
+            out = dict(model(b), **t_out)
+            with record_function("stage/loss"):
+                total, terms = loss_fn(out, labels)
         optimizer.zero_grad(set_to_none=True)
         with record_function("stage/backward"):
             total.backward()
@@ -155,6 +200,9 @@ def make_train_step(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
                 for p in group["params"]:
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
+            if mesh is not None:
+                reduce_gradients([p for group in optimizer.param_groups
+                                  for p in group["params"]], mesh)
             optimizer.step()
             if scheduler is not None:
                 scheduler.step()
@@ -226,7 +274,10 @@ def validate(model, loss_fn, anchor_spec: AnchorSpec, batcher, dataset,
              batch_size: int, device=None):
     """Mean validation loss with the running statistics (ref
     train.py:129-150), over ``dataset`` in order on ``device`` (CUDA unless
-    named). The model's train/eval mode is restored afterwards."""
+    named). The model's train/eval mode is restored afterwards. Its sums
+    are this process's own: under a data-parallel run every rank
+    validates the whole set and gets the single-process value, as the JAX
+    package validates outside its mesh."""
     dev = resolve_device(device)
     spec = anchor_spec.to(dev)
     was_training = model.training
@@ -251,7 +302,7 @@ def train_epochs(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
                  batch_size: int, log_every: int = 10,
                  ckpt_dir: str | None = None, save_freq: int = 0,
                  callback=None, val_dataset=None, eval_freq: int = 0,
-                 start_epoch: int = 0, device=None):
+                 start_epoch: int = 0, device=None, mesh=None):
     """Epoch loop with periodic validation and the bestval checkpoint (ref
     train.py:102-171; coalign_tpu/train.py:201). Batches are assembled and
     copied to the device a step ahead (data/prefetch.py). Every
@@ -260,16 +311,26 @@ def train_epochs(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
     validation loss is, and a lower one saves the bestval checkpoint;
     each ``save_freq`` epochs a checkpoint is saved. ``start_epoch``
     numbers the epochs of a resumed run after the earlier run's. Returns
-    the history."""
+    the history.
+
+    With a ``mesh`` the steps are data-parallel (make_train_step): every
+    rank draws the same global batches from its batcher (the same seed),
+    keeps its slice on the host (shard_batch) and copies only that to its
+    device; the validation loss is every rank's own (validate); rank 0
+    alone saves checkpoints."""
     dev = resolve_device(device)
     step_fn = make_train_step(model, loss_fn, anchor_spec, optimizer,
-                              scheduler, device=dev)
+                              scheduler, device=dev, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        ckpt_dir = None
     history = []
     step = 0
     best_val = float("inf")
     for e in range(start_epoch, start_epoch + epochs):
-        for batch in prefetch(batcher.batches(dataset, batch_size), size=2,
-                              device=dev):
+        batches = batcher.batches(dataset, batch_size)
+        if mesh is not None:
+            batches = (shard_batch(b, mesh) for b in batches)
+        for batch in prefetch(batches, size=2, device=dev):
             terms = step_fn(batch)
             step += 1
             if step % log_every == 0:

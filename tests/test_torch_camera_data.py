@@ -17,7 +17,11 @@ Bounds, all exact:
     resized) and on SyntheticCameraScenes' rendered views equals
     coalign_tpu's: images exactly, calibration within 1e-6 (the JAX
     package composes the extrinsics in float32, the port in float64);
-  * an hdf5 image pack beside a frame is refused, naming ROADMAP item 9.
+  * build_dataset's camera branch reads a frame's hdf5 image pack (the
+    port's tools/img2hdf5.py) in place of its PNGs: the same batch once the
+    tree is packed, and a pack it cannot read raises rather than falling
+    back to the PNGs (tests/test_torch_img2hdf5.py holds the packs
+    against h5py and the JAX package).
 """
 
 import os
@@ -188,9 +192,24 @@ def test_build_dataset_reads_cameras_and_refuses_hdf5_packs(tmp_path):
     batch = next(batcher.batches(base, 2))
     assert batch["image_inputs"]["imgs"].shape == (2, 2, 4, 48, 64, 3)
     frame = base[0]
+    want = batcher.assemble([frame])
     pack = CB.hdf5_pack(frame["agents"][0]["camera_files"][0])
     assert os.path.basename(pack) == "000000_imgs.hdf5"
+    from coalign_tpu_torch.tools.img2hdf5 import pack_root
+    assert pack_root(port) == 2 * 2
+    assert os.path.exists(pack)
+    # the PNGs of the packed frame's first agent are gone: what it reads
+    # comes from the pack
+    for path in frame["agents"][0]["camera_files"]:
+        os.remove(path)
+    got = batcher.assemble([frame])
+    np.testing.assert_array_equal(got["image_inputs"]["imgs"],
+                                  want["image_inputs"]["imgs"])
+    for key in ("post_rots", "post_trans"):
+        np.testing.assert_array_equal(got["image_inputs"][key],
+                                      want["image_inputs"][key])
     with open(pack, "wb") as f:
         f.write(b"\x89HDF\r\n\x1a\n")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    from coalign_tpu_torch.utils.hdf5 import HDF5FormatError
+    with pytest.raises(HDF5FormatError):
         batcher.assemble([frame])
