@@ -1,0 +1,8 @@
+"""Device ms a request of the kernels launched inside the
+``stage/pillar_encoder`` range(s)."""
+
+from benchmark.yardstick.readers import Reading, range_device_ms
+
+
+def read(r: Reading):
+    return range_device_ms(r, "stage/pillar_encoder")
