@@ -17,7 +17,6 @@ import os
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from coalign_tpu_torch.data.prefetch import prefetch
 from coalign_tpu_torch.postprocess.decode import (post_process,
@@ -31,6 +30,7 @@ from coalign_tpu_torch.utils.bandwidth import (frame_comm_bytes,
 from coalign_tpu_torch.utils.box_utils import (boxes_to_corners_3d,
                                                project_boxes7_by_tfm)
 from coalign_tpu_torch.utils.nms import nms_rotated
+from coalign_tpu_torch.utils.profiling import stage
 
 # fusion methods served by make_late_infer_fn, each with the mode it runs:
 # 'no_w_uncertainty' and 'single' give what 'no' gives (the detections carry
@@ -127,14 +127,14 @@ def make_infer_fn(model, anchors, postprocess_cfg: dict, device=None):
             # the two-stage models emit RoI-refined boxes, not anchor maps
             # (coalign_tpu/inference.py:83-97; ref
             # fpvrcnn_postprocessor.py:21-246)
-            with record_function("stage/post_process"):
+            with stage("stage/post_process"):
                 return post_process_refined(
                     out["boxes_refined"], out["roi_cls"], out["roi_mask"],
                     b["transformation_matrix"],
                     score_threshold=kwargs["score_threshold"],
                     nms_threshold=kwargs["nms_threshold"],
                     gt_range=kwargs["gt_range"])
-        with record_function("stage/post_process"):
+        with stage("stage/post_process"):
             dets = post_process(out["cls_preds"], out["reg_preds"], anchors,
                                 b["transformation_matrix"],
                                 dir_preds=out.get("dir_preds"),
@@ -163,7 +163,7 @@ def _make_dense_infer_fn(model, spec, postprocess_cfg: dict, device=None):
     def infer(batch: dict) -> dict:
         b = to_device(batch, dev)
         out = model(b)
-        with record_function("stage/post_process"):
+        with stage("stage/post_process"):
             return dense_post_process(out, b["transformation_matrix"], spec,
                                       score_thr, nms_thr)
 
@@ -217,7 +217,7 @@ def make_late_infer_fn(model, anchors, postprocess_cfg: dict,
         b = to_device(batch, dev)
         n_b, n_l = b["agent_mask"].shape
         out = model(b)                                   # (B*L, ...) maps
-        with record_function("stage/post_process"):
+        with stage("stage/post_process"):
             tfm = b["transformation_matrix"]
             if tfm.ndim == 3:
                 tfm = tfm[:, None].expand(n_b, n_l, 4, 4)
@@ -233,7 +233,7 @@ def make_late_infer_fn(model, anchors, postprocess_cfg: dict,
             k = n_l * valid.shape[1]
             corners = dets["corners3d"].reshape(n_b, k, 8, 3)
             scores = torch.where(valid, dets["scores"], 0.0).reshape(n_b, k)
-        with record_function("stage/joint_nms"):
+        with stage("stage/joint_nms"):
             order, keep = nms_rotated(corners[..., :4, :2], scores,
                                       valid.reshape(n_b, k),
                                       kwargs["nms_threshold"])

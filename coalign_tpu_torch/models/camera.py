@@ -29,7 +29,6 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from coalign_tpu_torch.models.camera_trunks import (EFFNET_DEAD,
                                                     EfficientNetB0,
@@ -44,6 +43,7 @@ from coalign_tpu_torch.models.layers import (DownsampleConv,
                                              compute_dtype)
 from coalign_tpu_torch.ops.lss import (LSSSpec, bin_depths, get_geometry,
                                        voxel_pool)
+from coalign_tpu_torch.utils.profiling import stage
 from coalign_tpu_torch.utils.transforms import normalize_pairwise_tfm
 
 
@@ -155,7 +155,7 @@ class BevEncodeFusion(ResNet18Layers):
 
         x1, x2, x3 = self.trunk(x)
         x_single = self.down_layer(decode(x1, x2, x3))
-        with record_function("stage/fusion"):
+        with stage("stage/fusion"):
             if self.ms:
                 f1, f2, f3 = (fuse(net, feat) for net, feat in
                               zip(self.fuse_modules, (x1, x2, x3)))
@@ -215,14 +215,14 @@ class _LSSBase(nn.Module):
         n = lead[-1]
         f = math.prod(lead[:-1])
         fh, fw = spec.feat_hw
-        with record_function("stage/camera_trunk"):
+        with stage("stage/camera_trunk"):
             x = imgs.reshape((f * n,) + imgs.shape[-3:]).permute(0, 3, 1, 2)
             # frozen: no graph through the encoder, whose outputs no
             # gradient reaches (the JAX package's stop_gradient); its norms'
             # statistics still move in training
             with torch.no_grad() if freeze else contextlib.nullcontext():
                 context, depth_logits = self.camencode(x)
-        with record_function("stage/lift"):
+        with stage("stage/lift"):
             if depth_logits is None or (self.use_gt_depth
                                         and "depth_map" in image_inputs):
                 dm = image_inputs["depth_map"].reshape(
@@ -251,7 +251,7 @@ class _LSSBase(nn.Module):
             geom = get_geometry(self.frustum.to(image_inputs["rots"].dtype),
                                 r("rots"), r("trans"), r("intrins"),
                                 r("post_rots"), r("post_trans"))
-        with record_function("stage/splat"):
+        with stage("stage/splat"):
             bev = voxel_pool(geom, feats, spec)
         if depth_logits is None:
             return bev, None
@@ -275,11 +275,11 @@ class LiftSplatShoot(_LSSBase):
 
     def forward(self, batch: dict) -> dict:
         bev, depth_logits = self._lift_splat(batch["image_inputs"])
-        with record_function("stage/bev_encoder"):
+        with stage("stage/bev_encoder"):
             x = self.bevencode(bev)
             if self.shrink_conv is not None:
                 x = self.shrink_conv(x)
-        with record_function("stage/heads"):
+        with stage("stage/heads"):
             out = detection_heads(self, x)
         if depth_logits is not None:
             out["depth_logits"] = depth_logits
@@ -313,9 +313,9 @@ class LiftSplatShootIntermediate(_LSSBase):
         bev, depth_logits = self._lift_splat(batch["image_inputs"], freeze)
         affine = normalize_pairwise_tfm(batch["pairwise_t_matrix"], spec.ny,
                                         spec.nx, spec.xbound[2])
-        with record_function("stage/bev_encoder"):
+        with stage("stage/bev_encoder"):
             single, fused = self.bevencode(bev, affine, batch["agent_mask"])
-        with record_function("stage/heads"):
+        with stage("stage/heads"):
             out = detection_heads(self, fused)
             if depth_logits is not None:
                 out["depth_logits"] = depth_logits

@@ -35,7 +35,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from coalign_tpu_torch.models.fuse.robust import ZeroInitLinear
 from coalign_tpu_torch.models.heads import add_detection_heads, detection_heads
@@ -49,6 +48,7 @@ from coalign_tpu_torch.ops.roi import (points_in_rotated_boxes,
 from coalign_tpu_torch.ops.warp import warp_agents_to_ego
 from coalign_tpu_torch.postprocess.anchors import generate_anchor_box
 from coalign_tpu_torch.postprocess.decode import post_process
+from coalign_tpu_torch.utils.profiling import stage
 from coalign_tpu_torch.utils.transforms import (normalize_pairwise_tfm,
                                                 project_points)
 
@@ -157,7 +157,7 @@ class FpvRcnn(_SecondBase):
         grid_z = fused["boxes"][..., None, 2:3].expand(b, r, g, 1)
         new_xyz = torch.cat([grid_xy, grid_z], -1).reshape(b, r * g, 3)
         new_mask = fused["mask"][..., None].expand(b, r, g).reshape(b, r * g)
-        with record_function("stage/ball_query"):
+        with stage("stage/ball_query"):
             pooled = self.roi_grid_pool(new_xyz, new_mask, kp_ego, kp_mask,
                                         feats=kp_feat)
         return pooled.reshape(b, r, g, -1)
@@ -178,15 +178,15 @@ class FpvRcnn(_SecondBase):
     def forward(self, batch: dict) -> dict:
         b, l = batch["agent_mask"].shape
         feat = self._bev_features(batch)
-        with record_function("stage/bev_trunk"):
+        with stage("stage/bev_trunk"):
             feat = self.ssfa(feat)                        # (B*L, C, H, W)
         stage1 = detection_heads(self, feat)
         # T_ego<-j of every agent frame
         tfm = batch["pairwise_t_matrix"][:, :, 0].reshape(b * l, 4, 4)
-        with record_function("stage/stage1_decode"):
+        with stage("stage/stage1_decode"):
             boxes, scores, valid = self._stage1(stage1, tfm.to(feat.dtype),
                                                 batch["agent_mask"])
-        with record_function("stage/matcher"):
+        with stage("stage/matcher"):
             fused = match_and_fuse(
                 boxes, scores, valid, self.args.get("matcher_iou", 0.1),
                 self.args.get("max_rois", 32),
@@ -195,9 +195,9 @@ class FpvRcnn(_SecondBase):
         if "vsa" in self.args:
             pooled = self._keypoint_stage2(batch, feat, tfm, fused, b, l)
         else:
-            with record_function("stage/roi_head"):
+            with stage("stage/roi_head"):
                 pooled = self._bev_stage2(batch, feat, fused, b, l)
-        with record_function("stage/roi_head"):
+        with stage("stage/roi_head"):
             r = pooled.shape[1]
             cls, reg = self.roi_head(pooled.reshape((b * r,)
                                                     + pooled.shape[2:]))

@@ -31,10 +31,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from coalign_tpu_torch.models.layers import MaskedBatchNorm2d
 from coalign_tpu_torch.ops.bev_raster import BevSpec, rasterize_bev
+from coalign_tpu_torch.utils.profiling import stage
 
 PIXOR_BN_EPS = 1e-5
 
@@ -183,11 +183,11 @@ class _PixorBase(nn.Module):
         if points.dim() == 4:
             points = points.reshape((-1,) + points.shape[2:])
             mask = mask.reshape((-1,) + mask.shape[2:])
-        with record_function("stage/raster"):
+        with stage("stage/raster"):
             return rasterize_bev(points, mask, self.spec)
 
     def heads(self, feat: torch.Tensor) -> dict:
-        with record_function("stage/heads"):
+        with stage("stage/heads"):
             cls, reg = self.header(feat)
         return {"cls_map": cls, "reg_map": reg}
 
@@ -198,7 +198,7 @@ class Pixor(_PixorBase):
 
     def forward(self, batch: dict) -> dict:
         bev = self.rasterize(batch)
-        with record_function("stage/backbone"):
+        with stage("stage/backbone"):
             feat = self.backbone(bev)
         return self.heads(feat)
 
@@ -227,11 +227,11 @@ class PixorIntermediate(_PixorBase):
     def forward(self, batch: dict) -> dict:
         mask = batch["agent_mask"]
         bev = self.rasterize(batch)
-        with record_function("stage/backbone_encode"):
+        with stage("stage/backbone_encode"):
             c3, c4, c5 = self.backbone.encode(bev)
-        with record_function("stage/fusion"):
+        with stage("stage/fusion"):
             fused = [attentive_agent_fusion(c, mask) for c in (c3, c4, c5)]
-        with record_function("stage/backbone_decode"):
+        with stage("stage/backbone_decode"):
             feat = self.backbone.decode(*fused)
         return self.heads(feat)
 

@@ -35,7 +35,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from coalign_tpu_torch.models.backbones import BaseBEVBackbone
 from coalign_tpu_torch.models.fuse.fusion import build_fusion
@@ -50,6 +49,7 @@ from coalign_tpu_torch.ops.voxels import (VoxelSpec, mean_voxelize,
                                           voxel_ids,
                                           voxel_max_broadcast_batched,
                                           voxel_mean_batched)
+from coalign_tpu_torch.utils.profiling import stage
 from coalign_tpu_torch.utils.transforms import normalize_pairwise_tfm
 
 SPARSE_ABOVE_CELLS = 1 << 22
@@ -118,7 +118,7 @@ class _SecondBase(_VoxelBase):
         """Voxelize -> 3D backbone -> height compression: (F, C * D, H/8,
         W/8), C-major as the reference's."""
         points, mask = _frames(batch)
-        with record_function("stage/voxelize"):
+        with stage("stage/voxelize"):
             if self.use_sparse:
                 grid = sparse_mean_voxelize(points, mask, self.spec,
                                             self.voxel_cap(), pad_z=1)
@@ -128,7 +128,7 @@ class _SecondBase(_VoxelBase):
                 # sparse_backbone_3d.py:39)
                 grid = F.pad(grid, (0, 0, 0, 0, 0, 0, 0, 1)).permute(
                     0, 4, 1, 2, 3)
-        with record_function("stage/backbone_3d"):
+        with stage("stage/backbone_3d"):
             out = getattr(self, self.backbone_name)(grid)["out"]
             return height_compression(dense_ncdhw(out))
 
@@ -145,7 +145,7 @@ class Second(_SecondBase):
 
     def forward(self, batch: dict) -> dict:
         x = self._bev_features(batch)
-        with record_function("stage/bev_trunk"):
+        with stage("stage/bev_trunk"):
             x = self.backbone_2d(x)
         return detection_heads(self, x)
 
@@ -168,13 +168,13 @@ class SecondIntermediate(Second):
         affine = normalize_pairwise_tfm(
             batch["pairwise_t_matrix"], self.spec.ny // 8, self.spec.nx // 8,
             self.args["voxel_size"][0] * 8)
-        with record_function("stage/bev_trunk"):
+        with stage("stage/bev_trunk"):
             scales = self.backbone_2d.encode(x)
-        with record_function("stage/fusion"):
+        with stage("stage/fusion"):
             fused = [fuse(f.reshape((b, l) + f.shape[1:]), affine,
                           batch["agent_mask"])
                      for fuse, f in zip(self.fusion_net, scales)]
-        with record_function("stage/bev_trunk"):
+        with stage("stage/bev_trunk"):
             x = self.backbone_2d.decode(fused)
         return detection_heads(self, x)
 
@@ -194,7 +194,7 @@ class CIASSD(_SecondBase):
 
     def forward(self, batch: dict) -> dict:
         x = self._bev_features(batch)
-        with record_function("stage/bev_trunk"):
+        with stage("stage/bev_trunk"):
             x = self.ssfa(x)
         return self.head(x)
 
@@ -267,13 +267,13 @@ class VoxelNet(_VoxelBase):
             0, 4, 1, 2, 3)
 
     def _trunk(self, batch: dict) -> torch.Tensor:
-        with record_function("stage/voxelize"):
+        with stage("stage/voxelize"):
             x = self._svfe(batch)
-        with record_function("stage/backbone_3d"):
+        with stage("stage/backbone_3d"):
             for conv in self.cml:
                 x = conv(x)
             x = height_compression(x)
-        with record_function("stage/bev_trunk"):
+        with stage("stage/bev_trunk"):
             return self.backbone_2d(x)
 
     def forward(self, batch: dict) -> dict:
@@ -296,7 +296,7 @@ class VoxelNetIntermediate(VoxelNet):
         ds = self.spec.ny // h
         affine = normalize_pairwise_tfm(batch["pairwise_t_matrix"], h, w,
                                         self.args["voxel_size"][0] * ds)
-        with record_function("stage/fusion"):
+        with stage("stage/fusion"):
             fused = self.fusion_net(x.reshape((b, l) + x.shape[1:]), affine,
                                     batch["agent_mask"])
         return detection_heads(self, fused)

@@ -15,12 +15,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from coalign_tpu_torch.models.layers import MaskedBatchNorm
 from coalign_tpu_torch.ops.pointnet2 import SAModuleMSG
 from coalign_tpu_torch.ops.roi import (farthest_point_sample,
                                        sample_bev_features)
+from coalign_tpu_torch.utils.profiling import stage
 
 
 class VoxelSetAbstraction(nn.Module):
@@ -50,7 +50,7 @@ class VoxelSetAbstraction(nn.Module):
         Returns kp_xyz (F, K, 3), kp_feat (F, K, num_out_features) and
         kp_mask (F, K)."""
         xyz = points[..., :3]
-        with record_function("stage/fps"):
+        with stage("stage/fps"):
             idx = farthest_point_sample(xyz, pt_mask, self.num_keypoints)
         kp_xyz = torch.gather(xyz, 1, idx[..., None].expand(-1, -1, 3))
         kp_mask = torch.gather(pt_mask, 1, idx)
@@ -65,7 +65,7 @@ class VoxelSetAbstraction(nn.Module):
                 bev_feat.to(xyz.dtype), kp_xyz[..., :2], self.lidar_range,
                 self.voxel_size, self.bev_stride))
         if self.sa is not None:
-            with record_function("stage/ball_query"):
+            with stage("stage/ball_query"):
                 feats.append(self.sa(kp_xyz, kp_mask, xyz, pt_mask,
                                      feats=points[..., 3:]))
         x = self.fusion(torch.cat(feats, dim=-1))

@@ -54,7 +54,6 @@ import math
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from coalign_tpu_torch.models.backbones import backbone_from_config
 from coalign_tpu_torch.models.camera import MODELS as LSS_FAMILY
@@ -70,6 +69,7 @@ from coalign_tpu_torch.models.pixor import PIXOR_FAMILY
 from coalign_tpu_torch.models.second_family import MODELS as SECOND_FAMILY
 from coalign_tpu_torch.ops.pillars import PillarSpec
 from coalign_tpu_torch.runtime import resolve_device
+from coalign_tpu_torch.utils.profiling import stage
 from coalign_tpu_torch.utils.transforms import (get_pairwise_transformation,
                                                 inverse_tfm, matmul_f32,
                                                 normalize_pairwise_tfm)
@@ -105,7 +105,7 @@ class _PillarBase(nn.Module):
         """The (B*L, C, ny, nx) pillar canvases of every agent slot, the
         normalized pairwise affines (B, L, L, 2, 3) and (B, L)."""
         b, l, n, _ = batch["points"].shape
-        with record_function("stage/pillar_encoder"):
+        with stage("stage/pillar_encoder"):
             bev = self.pillar_vfe(batch["points"].reshape(b * l, n, -1),
                                   batch["point_mask"].reshape(b * l, n))
         if compute_dtype() is not None:
@@ -144,23 +144,23 @@ class PointPillarBaselineMultiscale(_PillarBase):
                              if args.get("supervise_single") else None)
 
     def forward(self, batch: dict) -> dict:
-        # the "stage/..." ranges name the stages in a torch.profiler trace
-        # (chip_smoke.py's profile phase); without a profiler they record
-        # nothing
+        # the "stage/..." ranges (utils/profiling.stage) name the stages in
+        # a torch.profiler trace and, exported, the served graph's stage
+        # marks (serving.py); without a profiler none is opened
         bev, affine, (b, l) = self._encode_agents(batch)
         bn_mask = batch["agent_mask"].reshape(b * l)
         if self.naive_compressor is not None:
             bev = self.naive_compressor(bev, bn_mask)
-        with record_function("stage/backbone_encode"):
+        with stage("stage/backbone_encode"):
             feats = self.backbone.encode(bev, bn_mask)
-        with record_function("stage/fusion"):
+        with stage("stage/fusion"):
             fused = [fuse(feat.reshape((b, l) + feat.shape[1:]), affine,
                           batch["agent_mask"])
                      for fuse, feat in zip(self.fusion_net, feats)]
-        with record_function("stage/decode_shrink_heads"):
+        with stage("stage/decode_shrink_heads"):
             out = self._shrink_heads(self.backbone.decode(fused))
         if self.single_heads is not None:
-            with record_function("stage/single_heads"):
+            with stage("stage/single_heads"):
                 single = self.backbone.decode(feats, bn_mask)
                 if self.shrink_conv is not None:
                     single = self.shrink_conv(single)
@@ -186,19 +186,19 @@ class PointPillarBaseline(_PillarBase):
         """The fused ego map (B, C, H, W)."""
         bev, affine, (b, l) = self._encode_agents(batch)
         bn_mask = batch["agent_mask"].reshape(b * l)
-        with record_function("stage/backbone_shrink"):
+        with stage("stage/backbone_shrink"):
             x = self.backbone(bev, bn_mask)
             if self.shrink_conv is not None:
                 x = self.shrink_conv(x)
             if self.naive_compressor is not None:
                 x = self.naive_compressor(x, bn_mask)
-        with record_function("stage/fusion"):
+        with stage("stage/fusion"):
             return self.fusion_net(x.reshape((b, l) + x.shape[1:]), affine,
                                    batch["agent_mask"])
 
     def forward(self, batch: dict) -> dict:
         fused = self._fuse(batch)
-        with record_function("stage/heads"):
+        with stage("stage/heads"):
             return detection_heads(self, fused)
 
 
@@ -222,7 +222,7 @@ class PointPillarDiscoNet(PointPillarBaseline):
 
     def forward(self, batch: dict) -> dict:
         fused = self._fuse(batch)
-        with record_function("stage/heads"):
+        with stage("stage/heads"):
             out = detection_heads(self, fused)
         out["feature"] = fused
         return out
@@ -285,20 +285,20 @@ class PointPillarWhere2comm(_PillarBase):
     def forward(self, batch: dict) -> dict:
         bev, affine, (b, l) = self._encode_agents(batch)
         bn_mask = batch["agent_mask"].reshape(b * l)
-        with record_function("stage/backbone_encode"):
+        with stage("stage/backbone_encode"):
             feats = self.backbone.encode(bev, bn_mask)
-        with record_function("stage/single_heads"):
+        with stage("stage/single_heads"):
             single = self.backbone.decode(feats, bn_mask)
             if self.shrink_conv is not None:
                 single = self.shrink_conv(single)
             single_out = self.single_heads(single)
         conf = single_out["cls_preds"].detach()
-        with record_function("stage/fusion"):
+        with stage("stage/fusion"):
             fused, rate = self.fusion_net(
                 [f.reshape((b, l) + f.shape[1:]) for f in feats],
                 conf.reshape((b, l) + conf.shape[1:]), affine,
                 batch["agent_mask"])
-        with record_function("stage/decode_shrink_heads"):
+        with stage("stage/decode_shrink_heads"):
             out = self._shrink_heads(self.backbone.decode(fused))
         out["comm_rate"] = rate
         out.update({k + "_single": v for k, v in single_out.items()})
@@ -327,15 +327,15 @@ class PointPillarV2VNetRobust(_PillarBase):
     def forward(self, batch: dict) -> dict:
         from coalign_tpu_torch.models.fuse.robust import tfm_to_pose3
         bev, _, (b, l) = self._encode_agents(batch)
-        with record_function("stage/backbone_shrink"):
+        with stage("stage/backbone_shrink"):
             x = self.backbone(bev, batch["agent_mask"].reshape(b * l))
             if self.shrink_conv is not None:
                 x = self.shrink_conv(x)
         noisy = batch["pairwise_t_matrix"].to(x.dtype)
-        with record_function("stage/fusion"):
+        with stage("stage/fusion"):
             fused, aux = self.fusion_net(x.reshape((b, l) + x.shape[1:]),
                                          noisy, batch["agent_mask"])
-        with record_function("stage/heads"):
+        with stage("stage/heads"):
             out = detection_heads(self, fused)
         out.update(aux)
         if "lidar_pose_clean" in batch:
@@ -362,14 +362,14 @@ class PointPillarMash(_PillarBase):
 
     def forward(self, batch: dict) -> dict:
         bev, affine, (b, l) = self._encode_agents(batch)
-        with record_function("stage/backbone_shrink"):
+        with stage("stage/backbone_shrink"):
             x = self.backbone(bev, batch["agent_mask"].reshape(b * l))
             if self.shrink_conv is not None:
                 x = self.shrink_conv(x)
-        with record_function("stage/fusion"):
+        with stage("stage/fusion"):
             fused, corr_vol = self.fusion_net(
                 x.reshape((b, l) + x.shape[1:]), affine, batch["agent_mask"])
-        with record_function("stage/heads"):
+        with stage("stage/heads"):
             out = detection_heads(self, fused)
         out["corr_vol"] = corr_vol
         return out

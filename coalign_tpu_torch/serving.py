@@ -26,7 +26,13 @@ On CUDA, :class:`ServingModel` warms the program up on a side stream (the
 cuDNN autotuning of runtime.configure_cuda happens there), captures it once
 as a CUDA graph on static input buffers and replays that graph for every
 request: the counterpart of the JAX package's single ``jax.jit``
-(coalign_tpu/serving.py:97-101). Inside the traced program the NMS runs its
+(coalign_tpu/serving.py:97-101). The program is exported with its stage
+tags (utils/profiling.stage); the capture records a timed CUDA event at
+each change of tag, so every replay timestamps its stages on the device,
+and a call settles the previous replay's marks into
+utils/profiling.STAGE_LOG. Under a profiler a call's host work shows as
+three ranges: ``stage/serve_copy_in``, ``stage/serve_replay`` and
+``stage/serve_copy_out``. Inside the traced program the NMS runs its
 sync-free fixpoint (utils/nms.py), which neither torch.export nor a capture
 would take otherwise. Nothing falls back to the eager program: a failed
 capture or launch raises.
@@ -44,6 +50,9 @@ import torch
 # registers torch.ops.coalign_tpu_torch.rotated_iou, which the loaded
 # program calls
 from coalign_tpu_torch.kernels import rotated_iou as _kernel  # noqa: F401
+from coalign_tpu_torch.utils.profiling import (STAGE_LOG, StageMarks,
+                                               mark_positions, node_stage,
+                                               stage)
 
 _PARAMS = "params.npz"
 _META = "meta.json"
@@ -165,8 +174,9 @@ def export_inference(model, batch: dict, anchors, postprocess_cfg: dict,
         params = {k: v.to(dev) for k, v in state.items()}
         try:
             # under no_grad, so that make_infer_fn's own no_grad changes
-            # nothing and the program stays one flat graph
-            with torch.no_grad():
+            # nothing and the program stays one flat graph; the stage tags
+            # (utils/profiling.stage) kept as node metadata
+            with torch.no_grad(), torch.fx.traceback.preserve_node_meta():
                 program = torch.export.export(
                     _FrameProgram(_Frame(traced, infer)),
                     (params, batch_inputs(batch, keys, dev)))
@@ -217,13 +227,48 @@ def _constants_on(module: torch.fx.GraphModule, device) -> torch.fx.GraphModule:
     return module
 
 
+_OPS = ("call_function", "call_method", "call_module")
+
+
+def stage_segments(graph: torch.fx.Graph) -> list:
+    """[(node, segment name)]: the operation at which each stage segment
+    of an exported program's ``graph`` starts (utils/profiling
+    .mark_positions over its operations' stage tags). A program exported
+    without tags is one UNTAGGED segment."""
+    ops = [n for n in graph.nodes if n.op in _OPS]
+    return [(ops[i], name)
+            for i, name in mark_positions([node_stage(n) for n in ops])]
+
+
+class _MarkedRun(torch.fx.Interpreter):
+    """Runs a program's nodes in order, recording ``marks`` (a StageMarks
+    over its segments) before the first operation of each segment and
+    after the last: inside a CUDA-graph capture, each record is an
+    event-record node of the graph."""
+
+    def __init__(self, module: torch.fx.GraphModule):
+        super().__init__(module)
+        segments = stage_segments(module.graph)
+        self.marks = StageMarks([name for _, name in segments])
+        self._starts = {node: i for i, (node, _) in enumerate(segments)}
+
+    def run_node(self, node):
+        if node in self._starts:
+            self.marks.record(self._starts[node])
+        elif node.op == "output":
+            self.marks.record(len(self.marks.names))
+        return super().run_node(node)
+
+
 class ServingModel:
     """A loaded artifact: ``dets = serving_model(batch)``.
 
     On CUDA the program is captured once as a CUDA graph over static input
-    buffers (after a warm-up on a side stream); a call copies the batch in,
-    replays the graph and returns copies of the outputs. On the CPU a call
-    runs the loaded program."""
+    buffers (after a warm-up on a side stream), with a timed event at each
+    stage boundary; a call copies the batch in, replays the graph and
+    returns copies of the outputs, and each replay's device ms by stage
+    reach utils/profiling.STAGE_LOG under the call's index. On the CPU a
+    call runs the loaded program."""
 
     def __init__(self, program, params: dict, meta: dict, device):
         self.meta = meta
@@ -231,6 +276,8 @@ class ServingModel:
         self.params = params
         self._fn = _constants_on(program.module(), self.device)
         self.graph = None
+        self.calls = 0
+        self._pending = None
         if self.device.type == "cuda":
             self._capture()
 
@@ -252,8 +299,10 @@ class ServingModel:
         torch.cuda.current_stream(self.device).wait_stream(side)
         torch.cuda.synchronize(self.device)
         self.graph = torch.cuda.CUDAGraph()
+        marked = _MarkedRun(self._fn)
         with torch.cuda.graph(self.graph), torch.no_grad():
-            self.static_out = self._fn(self.params, self.static)
+            self.static_out = marked.run(self.params, self.static)
+        self.marks = marked.marks
         torch.cuda.synchronize(self.device)
 
     def check_batch(self, batch: dict):
@@ -271,18 +320,33 @@ class ServingModel:
                     f"re-export for a different batch contract)")
 
     def __call__(self, batch: dict) -> dict:
-        self.check_batch(batch)
         keys = self.meta["batch_spec"]
-        if self.graph is None:
-            with torch.no_grad():
-                return self._fn(self.params,
-                                batch_inputs(batch, keys, self.device))
-        # each host value straight into its static buffer: one copy, cast
-        # to the buffer's dtype on the way
-        for k in keys:
-            _lookup(self.static, k).copy_(torch.as_tensor(_lookup(batch, k)))
-        self.graph.replay()
-        return {k: v.clone() for k, v in self.static_out.items()}
+        with stage("stage/serve_copy_in"):
+            self.check_batch(batch)
+            if self.graph is None:
+                inputs = batch_inputs(batch, keys, self.device)
+            else:
+                if self._pending is not None:
+                    # the last replay's marks, before this replay records
+                    # them again: logged if done, else dropped
+                    STAGE_LOG.settle(self._pending)
+                # each host value straight into its static buffer: one
+                # copy, cast to the buffer's dtype on the way
+                for k in keys:
+                    _lookup(self.static, k).copy_(
+                        torch.as_tensor(_lookup(batch, k)))
+        with stage("stage/serve_replay"):
+            if self.graph is None:
+                with torch.no_grad():
+                    out = self._fn(self.params, inputs)
+            else:
+                self.graph.replay()
+                self._pending = STAGE_LOG.submit(self.calls, self.marks)
+        self.calls += 1
+        with stage("stage/serve_copy_out"):
+            if self.graph is None:
+                return out
+            return {k: v.clone() for k, v in self.static_out.items()}
 
 
 def load_params(artifact_dir: str, device) -> dict:

@@ -18,12 +18,12 @@ import json
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from coalign_tpu_torch.inference import infer_setup, to_device
 from coalign_tpu_torch.posegraph import BoxAlignConfig, align_poses_batch
 from coalign_tpu_torch.postprocess.decode import post_process
 from coalign_tpu_torch.runtime import resolve_device
+from coalign_tpu_torch.utils.profiling import stage
 from coalign_tpu_torch.utils.transforms import get_pairwise_transformation
 
 
@@ -52,7 +52,7 @@ def make_stage1_fn(model, anchors, postprocess_cfg: dict, max_boxes=24,
     def stage1(batch: dict) -> dict:
         b = to_device(batch, dev)
         n_b, n_l = b["agent_mask"].shape
-        with record_function("stage/stage1"):
+        with stage("stage/stage1"):
             out = model(b)                                  # (B*L, ...) maps
             cls = out["cls_preds"]
             eye = torch.eye(4, device=dev).expand(cls.shape[0], 4, 4)
@@ -82,7 +82,7 @@ def correct_batch_poses(batch: dict, stage1_dets: dict,
     as they were. Mirrors the dataset integration (ref
     intermediate_fusion_dataset.py:301-332)."""
     dev = resolve_device(device)
-    with record_function("stage/pose_graph"):
+    with stage("stage/pose_graph"):
         refined = align_poses_batch(
             stage1_dets["box_poses"], stage1_dets["box_mask"],
             stage1_dets["uncertainty"], batch["lidar_pose"],

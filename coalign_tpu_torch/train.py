@@ -31,7 +31,6 @@ import os
 import re
 
 import torch
-from torch.profiler import record_function
 
 from coalign_tpu_torch.data.prefetch import prefetch
 from coalign_tpu_torch.inference import to_device
@@ -43,6 +42,7 @@ from coalign_tpu_torch.postprocess.anchors import (AnchorSpec,
 from coalign_tpu_torch.postprocess.dense_bev import (DenseBevSpec,
                                                      assign_dense_targets)
 from coalign_tpu_torch.runtime import configure_cuda, resolve_device
+from coalign_tpu_torch.utils.profiling import stage
 from coalign_tpu_torch.utils.weights import load_pth
 
 _LABEL_DTYPES = {"gt_boxes": torch.float32, "gt_mask": torch.bool}
@@ -167,7 +167,7 @@ def make_train_step(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
     def step(batch: dict) -> dict:
         float_dtype = next(model.parameters()).dtype
         b = to_device(batch, dev, float_dtype)
-        with record_function("stage/labels"):
+        with stage("stage/labels"):
             for key, dtype in _LABEL_DTYPES.items():
                 b[key] = torch.as_tensor(batch[key], dtype=dtype, device=dev)
             labels = assign_labels(b["gt_boxes"], b["gt_mask"], spec,
@@ -181,18 +181,18 @@ def make_train_step(model, loss_fn, anchor_spec: AnchorSpec, optimizer,
                 labels.update({k + "_single": v for k, v in singles.items()})
         t_out = {}
         if teacher is not None:
-            with torch.no_grad(), record_function("stage/teacher"):
+            with torch.no_grad(), stage("stage/teacher"):
                 t_out = teacher(b)
         model.train()
         with (contextlib.nullcontext() if mesh is None
               else global_sums(mesh)):
             out = dict(model(b), **t_out)
-            with record_function("stage/loss"):
+            with stage("stage/loss"):
                 total, terms = loss_fn(out, labels)
         optimizer.zero_grad(set_to_none=True)
-        with record_function("stage/backward"):
+        with stage("stage/backward"):
             total.backward()
-        with record_function("stage/optimizer"):
+        with stage("stage/optimizer"):
             # a parameter the loss does not reach (Where2comm's single
             # heads under point_pillar_loss) gets a zero gradient, as in
             # JAX, so that AdamW still decays it as optax.adamw does

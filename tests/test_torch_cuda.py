@@ -589,3 +589,35 @@ def test_lss_on_cuda_matches_cpu(cuda):
     finally:
         set_compute_dtype(None)
     train_parity(batch, LSS_TINY, LSS_TINY_LOSS, anchor_args=LSS_TINY_ANCHORS)
+
+
+@pytest.mark.cuda
+def test_served_stage_marks_resolve_within_the_replay(cuda, tmp_path):
+    """The captured graph's stage marks: each replay's device ms by stage
+    reach the log under the call's index, positive for every stage of the
+    flagship, and together within CUDA events around the call."""
+    from coalign_tpu_torch.serving import export_inference, load_artifact
+    from coalign_tpu_torch.utils.profiling import STAGE_LOG, read_stage_log
+
+    from test_torch_stage_marks import FLAGSHIP_STAGES, tiny_flagship
+    model, batch, anchors, post = tiny_flagship()
+    export_inference(model, batch, anchors, post, str(tmp_path),
+                     platforms=("cuda",))
+    served = load_artifact(str(tmp_path), device=cuda)
+    STAGE_LOG.clear()
+    served(batch)
+    # done before the next call settles its marks (a client that reads
+    # the boxes waits as long)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    served(batch)
+    end.record()
+    torch.cuda.synchronize()
+    records = read_stage_log()
+    assert [r["request"] for r in records] == [0, 1]
+    assert STAGE_LOG.dropped == 0
+    stages = records[-1]["stages"]
+    assert all(stages.get(s, 0.0) > 0 for s in FLAGSHIP_STAGES), stages
+    assert all(ms >= 0 for ms in stages.values()), stages
+    assert sum(stages.values()) <= start.elapsed_time(end), stages

@@ -13,8 +13,8 @@
     ops/voxels.cell_index: faults 9, 10 and 12);
   * model_utils on torch state dicts: the JAX surgery's results under
     "."-joined keys, count_params, cleanup_checkpoints on net_epoch files;
-  * StageTimer and device_trace; the TensorBoard callback with a writer and
-    with none importable.
+  * device_trace; the TensorBoard callback with a writer and with none
+    importable.
 """
 
 import json
@@ -40,7 +40,7 @@ from coalign_tpu_torch.utils import subsampling as S
 from coalign_tpu_torch.utils.consensus import max_consensus_align
 from coalign_tpu_torch.utils.keypoints import (bev_saliency,
                                                sample_bev_keypoints)
-from coalign_tpu_torch.utils.profiling import StageTimer, device_trace
+from coalign_tpu_torch.utils.profiling import device_trace
 from coalign_tpu_torch.utils.tb_logging import make_tb_callback
 
 torch.set_num_threads(1)
@@ -234,17 +234,6 @@ def test_cleanup_checkpoints(tmp_path):
     assert sorted(os.listdir(tmp_path)) == [
         "net_epoch10.pth", "net_epoch9.pth", "net_epoch_bestval_at2.pth",
         "x.pth"]
-
-
-def test_stage_timer():
-    t = StageTimer()
-    x = torch.ones(64, 64)
-    with t.stage("a", sync={"x": [x @ x]}):
-        sum(range(1000))
-    with t.stage("a"):
-        pass
-    s = t.summary()
-    assert s["a"]["count"] == 2 and s["a"]["total_s"] >= 0
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
